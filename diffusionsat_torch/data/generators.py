@@ -1,0 +1,173 @@
+"""SAT instance generators, driven by the native solver.
+
+The same streams as the TPU package's `data/generators.py` for the 3-SAT
+path: the two random streams (`random.Random` and numpy's `default_rng`)
+interleave in the same order and the solver gets the same seeds, so both
+packages generate the same instances.
+
+- `SAT3Instances`: random 3-SAT at the satisfiability threshold
+  m = 4.258 n + 58.26 n^(-2/3), rejection-sampled for SAT, each instance
+  with the solver's model attached.
+- `DiffusionSatInstances`: wraps a generator and attaches one solution per
+  instance. A solution the base generator attached is kept; a missing one
+  is a CDCL model (`use_unigen=False`). Uniform solution sampling, the
+  multi-label bank (`n_label_samples > 1`) and the fixed-formula test mode
+  (`test_cnf`) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import random
+from abc import ABC, abstractmethod
+from typing import Iterator
+
+import numpy as np
+
+from diffusionsat_torch.sat import cnf as cnf_mod
+from diffusionsat_torch.sat.solvers import solve
+
+Instance = tuple[int, list[list[int]], list[int] | None]
+
+_UNIFORM_NOT_PORTED = (
+    "uniform solution sampling ({what}) needs the model enumerator and the "
+    "XOR-hash sampler; it waits for the ROADMAP Queue 1 item 12 'Host code'")
+
+
+class SatInstances(ABC):
+    """Instance stream contract: yields (n_vars, clauses,
+    solution-bits-or-None)."""
+
+    @abstractmethod
+    def train_generator(self) -> Iterator[Instance]:
+        ...
+
+    @abstractmethod
+    def test_generator(self) -> Iterator[Instance]:
+        ...
+
+    def split(self, n_shards: int) -> list["SatInstances"] | None:
+        """Return n_shards disjoint-seed copies covering the same totals,
+        enabling process-parallel generation. None = not splittable."""
+        return None
+
+
+class SAT3Instances(SatInstances):
+    """Random hard 3-SAT at the SAT threshold."""
+
+    def __init__(self, min_vars: int = 5, max_vars: int = 30,
+                 train_size: int = 100_000, test_size: int = 5_000,
+                 seed: int = 0):
+        self.min_vars = min_vars
+        self.max_vars = max_vars
+        self.train_size = train_size
+        self.test_size = test_size
+        self.seed = seed
+
+    def train_generator(self):
+        return self._generator(self.train_size, self.seed)
+
+    def test_generator(self):
+        return self._generator(self.test_size, self.seed + 1_000_003)
+
+    def split(self, n_shards: int):
+        shards = []
+        for i in range(n_shards):
+            size = self.train_size // n_shards + \
+                (1 if i < self.train_size % n_shards else 0)
+            tsize = self.test_size // n_shards + \
+                (1 if i < self.test_size % n_shards else 0)
+            shards.append(SAT3Instances(
+                self.min_vars, self.max_vars, train_size=size,
+                test_size=tsize, seed=self.seed + 7919 * (i + 1)))
+        return shards
+
+    def _generator(self, size: int, seed: int):
+        rng = random.Random(seed)
+        nprng = np.random.default_rng(seed)
+        for idx in range(size):
+            n_vars = rng.randint(self.min_vars, self.max_vars)
+            n_clauses = int(4.258 * n_vars + 58.26 * n_vars ** (-2.0 / 3.0))
+            attempt = 0
+            while True:
+                attempt += 1
+                clauses = []
+                for _ in range(n_clauses):
+                    vs = nprng.choice(n_vars, size=min(3, n_vars),
+                                      replace=False)
+                    clauses.append([int(v + 1) if rng.random() < 0.5
+                                    else -int(v + 1) for v in vs])
+                is_sat, solution = solve(clauses, n_vars,
+                                         seed=seed + idx * 1000 + attempt)
+                if is_sat:
+                    break
+            bits = [1 if l > 0 else 0 for l in solution]
+            yield n_vars, clauses, bits
+
+
+class DiffusionSatInstances(SatInstances):
+    """Attach a solution per instance.
+
+    The constructor keeps the TPU package's arguments. Ported: one label
+    per instance (`n_label_samples == 1`), taken from the base generator
+    where it attaches one (the 3-SAT path) and from the CDCL solver
+    otherwise (`use_unigen=False`).
+    """
+
+    def __init__(self, base: SatInstances, use_unigen: bool = True,
+                 test_cnf: cnf_mod.CNF | None = None,
+                 test_solutions_multiplier_k: int = 10,
+                 max_enumerate: int = 200_000, seed: int = 0,
+                 n_label_samples: int = 1):
+        if n_label_samples > 1 and not use_unigen:
+            raise ValueError("n_label_samples > 1 requires use_unigen=True "
+                             "(multi-label banks must be uniform samples)")
+        if n_label_samples > 1:
+            raise NotImplementedError(_UNIFORM_NOT_PORTED.format(
+                what="n_label_samples > 1"))
+        if test_cnf is not None:
+            raise NotImplementedError(_UNIFORM_NOT_PORTED.format(
+                what="test_cnf"))
+        self.base = base
+        self.use_unigen = use_unigen
+        self.test_cnf = test_cnf
+        self.k = test_solutions_multiplier_k
+        self.max_enumerate = max_enumerate
+        self.seed = seed
+        self.n_label_samples = n_label_samples
+
+    def _solution_for(self, n_vars: int, clauses: list[list[int]],
+                      idx: int):
+        if self.use_unigen:
+            raise NotImplementedError(_UNIFORM_NOT_PORTED.format(
+                what="use_unigen=True on a generator that attaches no "
+                     "solution"))
+        is_sat, model = solve(clauses, n_vars, seed=self.seed + idx)
+        if not is_sat:
+            return None
+        return [1 if l > 0 else 0 for l in model]
+
+    def _wrap(self, gen):
+        for idx, (n_vars, clauses, solution) in enumerate(gen):
+            if solution is None:
+                solution = self._solution_for(n_vars, clauses, idx)
+                if solution is None:
+                    raise ValueError("UNSAT instance in diffusion data")
+            yield n_vars, clauses, solution
+
+    def split(self, n_shards: int):
+        base_shards = self.base.split(n_shards)
+        if base_shards is None:
+            return None
+        return [DiffusionSatInstances(
+            b, use_unigen=self.use_unigen,
+            test_solutions_multiplier_k=self.k,
+            max_enumerate=self.max_enumerate,
+            seed=self.seed + 104729 * (i + 1),
+            n_label_samples=self.n_label_samples)
+            for i, b in enumerate(base_shards)]
+
+    def train_generator(self):
+        return self._wrap(self.base.train_generator())
+
+    def test_generator(self):
+        return self._wrap(self.base.test_generator())

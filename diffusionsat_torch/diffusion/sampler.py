@@ -1,10 +1,12 @@
-"""Reverse-diffusion SAT solution sampler, flat layout.
+"""Reverse-diffusion SAT solution sampler.
 
-Counterpart of the TPU package's `diffusion/sampler.py` (`make_diffusion_chain`
-and `DiffusionSampler`). The reverse chain (randomized rounding, model
+Counterpart of the TPU package's `diffusion/sampler.py`
+(`make_diffusion_chain`, `make_dense_diffusion_chain` and
+`DiffusionSampler`). The reverse chain (randomized rounding, model
 denoise, categorical posterior step, per-graph freezing) runs as a Python
 loop of eager ops on the device; host code packs the batch and counts the
-satisfying samples. The dense block chain is not ported yet.
+satisfying samples. Small formulas run on the dense block chain, all others
+on the flat chain with the segsum kernel.
 """
 
 from __future__ import annotations
@@ -19,12 +21,18 @@ from diffusionsat_torch.diffusion.schedule import (
     reverse_distribution_step_theoretic,
 )
 from diffusionsat_torch.graph.batch import BucketSpec, SatBatch, build_batch
+from diffusionsat_torch.graph.dense_batch import (
+    DenseSatBatch,
+    densify_batches_quantized,
+)
 from diffusionsat_torch.losses.sat import is_graph_sat
 from diffusionsat_torch.models.query_sat import (
     QuerySATConfig,
     params_to,
     query_sat_apply,
 )
+from diffusionsat_torch.models.query_sat_dense import query_sat_dense_apply
+from diffusionsat_torch.ops import dense_ops
 from diffusionsat_torch.ops.graph_ops import graph_gather_vars
 from diffusionsat_torch.ops.segsum import BatchPlans, build_batch_plans
 from diffusionsat_torch.sat.cnf import CNF, VariableAssignment
@@ -125,6 +133,92 @@ def make_diffusion_chain(cfg: QuerySATConfig, diffusion_steps: int = 32,
     return chain
 
 
+def make_dense_diffusion_chain(cfg: QuerySATConfig,
+                               diffusion_steps: int = 32,
+                               use_baseline_sampling: bool = True,
+                               self_supervised: bool = False,
+                               test_rounds: int = 32,
+                               freeze_sat: bool = True,
+                               freeze_from: int = 0,
+                               final_sample: bool = False,
+                               temperature: float = 1.0):
+    """Dense-block variant of the reverse chain: the sampler batch is G
+    copies of one small formula as `DenseSatBatch` blocks. Same semantics
+    as `make_diffusion_chain`; shapes are [G, Vg, ...].
+
+    Returns chain(params, batch, generator, **draws) -> (bits [G, Vg] int32,
+    solved_graphs [G], fixed_step [G, Vg]). The optional draws replace the
+    generator's: `rounding_uniforms` [N, G, Vg, 1], `labels` [N, G, Vg],
+    `round_noise` [N, test_rounds, G, Vg, 4] and `final_uniforms` [G, Vg].
+    """
+    N = diffusion_steps
+
+    @torch.no_grad()
+    def chain(params, batch: DenseSatBatch,
+              generator: torch.Generator | None,
+              rounding_uniforms: torch.Tensor | None = None,
+              labels: torch.Tensor | None = None,
+              round_noise: torch.Tensor | None = None,
+              final_uniforms: torch.Tensor | None = None):
+        dev = batch.device
+        G, Vg = batch.G, batch.Vg
+        x = torch.full((G, Vg, 2), 0.5, device=dev)
+        fixed_mask = torch.zeros((G, Vg), device=dev)
+        fixed_bits = torch.zeros((G, Vg), device=dev)
+        fixed_step = torch.full((G, Vg), -1, dtype=torch.int32, device=dev)
+        predictions = torch.full((G, Vg), 0.5, device=dev)
+
+        for t in range(N):
+            noise_scale = 1.0 - torch.tensor(t, dtype=torch.float32,
+                                             device=dev) / N
+            x_noisy = randomized_rounding(
+                x, generator,
+                None if rounding_uniforms is None else rounding_uniforms[t])
+            if use_baseline_sampling:
+                x = x_noisy
+
+            denoised = predictions[..., None] if self_supervised else None
+            logits, _, _, _ = query_sat_dense_apply(
+                params, cfg, batch, generator, training=False,
+                labels=None if labels is None else labels[t],
+                noise_scale=noise_scale, noisy_num=x_noisy,
+                denoised_num=denoised, rounds=test_rounds, early_exit=True,
+                round_noise=None if round_noise is None else round_noise[t],
+                device=dev)
+            predictions = torch.sigmoid(logits[..., 0] / temperature)
+
+            x = reverse_distribution_step_theoretic(
+                x, torch.stack([1 - predictions, predictions], dim=-1),
+                noise_scale, 1.0 / N)
+
+            if freeze_sat and t >= freeze_from:
+                pred_bits = torch.round(predictions)
+                sat_g = dense_ops.is_graph_sat(logits, batch)[:, 0]    # [G]
+                sat_v = sat_g[:, None].expand(G, Vg)
+                newly = (sat_v > 0.5) & (fixed_mask < 0.5)
+                fixed_bits = torch.where(newly, pred_bits, fixed_bits)
+                fixed_step = torch.where(
+                    newly, torch.tensor(t, dtype=torch.int32, device=dev),
+                    fixed_step)
+                fixed_mask = torch.maximum(fixed_mask,
+                                           newly.to(fixed_mask.dtype))
+
+        if final_sample:
+            u = final_uniforms if final_uniforms is not None else \
+                torch.rand((G, Vg), generator=generator, device=dev)
+            free_bits = (u.to(dev) < predictions).to(torch.float32)
+        else:
+            free_bits = torch.round(predictions)
+        final_bits = torch.where(fixed_mask > 0.5, fixed_bits,
+                                 free_bits).to(torch.int32)
+        final_logits = (final_bits.to(torch.float32) * 2 - 1
+                        )[..., None] * 10.0
+        solved = dense_ops.is_graph_sat(final_logits, batch)[:, 0]
+        return final_bits, solved, fixed_step
+
+    return chain
+
+
 class DiffusionSampler:
     """Sample SAT solutions of one formula via reverse diffusion.
 
@@ -133,10 +227,10 @@ class DiffusionSampler:
     n SAT samples accumulate; it stops early when the SAT rate drops below
     0.5%.
 
-    Only the flat layout is ported. `dense=None` picks the layout as the
-    TPU package does (dense for at most 128 variables and 576 clauses), and
-    a dense choice raises; pass `dense=False` to run such a formula on the
-    flat chain. The literal-clause aggregations run on the segsum kernel.
+    `dense=None` picks the layout as the TPU package does: the dense block
+    chain for a formula of at most 128 variables and 576 clauses (256
+    copies a batch), the flat chain above that. On the flat chain the
+    literal-clause aggregations run on the segsum kernel.
     """
 
     def __init__(self, params: Any, cfg: QuerySATConfig, cnf: CNF,
@@ -153,18 +247,20 @@ class DiffusionSampler:
         self.clauses = cnf.clauses()
         if dense is None:
             dense = self.n_vars <= 128 and len(self.clauses) <= 576
-        if dense:
-            raise NotImplementedError(
-                "the dense sampler chain waits for the ROADMAP item "
-                "'Dense QuerySAT'; pass dense=False to run the flat chain")
+        self.dense = dense
         self.device = resolve_device(device)
         self.params = params_to(params, self.device)
         self.cfg = cfg
         self.cnf = cnf
         n_cells = sum(len(c) for c in self.clauses)
-        self.dense = False
         if graphs_per_batch is None:
-            graphs_per_batch = max(1, min(128, 2000 // max(self.n_vars, 1)))
+            if dense:
+                # a fixed batch of copies: with the quantized block dims,
+                # formulas of similar size share one batch shape
+                graphs_per_batch = 256
+            else:
+                graphs_per_batch = max(1, min(128,
+                                              2000 // max(self.n_vars, 1)))
         if bucket is None:
             g = graphs_per_batch
             bucket = BucketSpec(
@@ -179,14 +275,20 @@ class DiffusionSampler:
         formulas = [(self.n_vars, self.clauses)] * self.graphs_per_batch
         sols = [[0] * self.n_vars] * self.graphs_per_batch
         flat = build_batch(formulas, self.bucket, solutions=sols)
-        self.plans = build_batch_plans(flat).to(self.device)
-        self.batch = flat.to(self.device)
-        self.chain = make_diffusion_chain(
-            cfg, diffusion_steps=diffusion_steps,
+        chain_kw = dict(
+            diffusion_steps=diffusion_steps,
             use_baseline_sampling=use_baseline_sampling,
             self_supervised=self_supervised, test_rounds=test_rounds,
             freeze_sat=freeze_sat, freeze_from=freeze_from,
             final_sample=final_sample, temperature=temperature)
+        if self.dense:
+            self.plans = None
+            self.batch = densify_batches_quantized([flat])[0].to(self.device)
+            self.chain = make_dense_diffusion_chain(cfg, **chain_kw)
+        else:
+            self.plans = build_batch_plans(flat).to(self.device)
+            self.batch = flat.to(self.device)
+            self.chain = make_diffusion_chain(cfg, **chain_kw)
 
     @classmethod
     def from_checkpoint(cls, model_path: str, dimacs_filename: str,
@@ -218,12 +320,19 @@ class DiffusionSampler:
             if total > 0 and sat_total / total < 0.005:
                 print("too many unsat samples; stopping diffusion")
                 break
-            bits, _solved, _ = self.chain(self.params, self.batch,
-                                          self.generator, self.plans)
+            if self.dense:
+                bits, _solved, _ = self.chain(self.params, self.batch,
+                                              self.generator)
+            else:
+                bits, _solved, _ = self.chain(self.params, self.batch,
+                                              self.generator, self.plans)
             bits = bits.cpu().numpy()
             for g in range(self.graphs_per_batch):
-                lo = g * self.n_vars
-                row = bits[lo:lo + self.n_vars]
+                if self.dense:
+                    row = bits[g, :self.n_vars]
+                else:
+                    lo = g * self.n_vars
+                    row = bits[lo:lo + self.n_vars]
                 total += 1
                 asgn = VariableAssignment(self.n_vars, self.clauses)
                 asgn.assign_all(row.astype(bool))

@@ -62,8 +62,8 @@ from diffusionsat_torch.ops.segsum import (
 class QuerySATConfig:
     """Architecture knobs, with the TPU package's field names and defaults.
 
-    Only f32 inference is ported: `dtype`, `compute_dtype`, `block_bf16`,
-    `remat` and `collect_round_stats` must keep their defaults.
+    Only f32 inference is ported: `dtype`, `compute_dtype`, `block_bf16`
+    and `remat` must keep their defaults.
     """
     feature_maps: int = 128
     query_maps: int = 128
@@ -137,15 +137,33 @@ def _check_ported(cfg: QuerySATConfig, training: bool, axis_name, halo):
     if (cfg.block_bf16 or cfg.compute_dtype is not None
             or cfg.dtype != torch.float32):
         raise NotImplementedError(
-            "reduced precision (block_bf16, compute_dtype) waits for the "
-            "ROADMAP item 'Dense QuerySAT'")
+            "reduced precision (block_bf16, compute_dtype) is a training "
+            "default; it waits for the ROADMAP item 'Train step and "
+            "optimizer'")
     if cfg.remat != "none":
         raise NotImplementedError(
             "remat is a training mode; it waits for the ROADMAP item "
             "'Train step and optimizer'")
-    if cfg.collect_round_stats:
-        raise NotImplementedError(
-            "collect_round_stats waits for the ROADMAP item 'Dense QuerySAT'")
+
+
+def _round_stats(logit_loss, query, variables_grad, new_variables,
+                 new_clause_state, logits, sat) -> dict:
+    """In-model summaries of one round (`collect_round_stats`)."""
+    return {
+        "logit_loss": logit_loss,
+        "query_mean_abs": torch.mean(torch.abs(query)),
+        "grad_mean_abs": torch.mean(torch.abs(variables_grad)),
+        "var_state_rms": torch.sqrt(torch.mean(torch.square(new_variables))),
+        "clause_state_rms": torch.sqrt(
+            torch.mean(torch.square(new_clause_state))),
+        "logits_mean_abs": torch.mean(torch.abs(logits)),
+        "batch_sat": sat.to(torch.float32),
+    }
+
+
+def _stack_round_stats(rows: list[dict]) -> dict:
+    """Per-round summaries as one [rounds] tensor per key."""
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
 
 def query_sat_init(generator: torch.Generator, cfg: QuerySATConfig) -> dict:
@@ -212,7 +230,9 @@ def query_sat_apply(params: dict, cfg: QuerySATConfig, batch: SatBatch,
     head). `noise_scale` defaults to a uniform draw. `round_noise`
     ([rounds, V, 4]) replaces the per-round exploration noise draws.
     `generator` must live on `device`. The batch, plans and params are
-    moved to `device` (a no-op when they are there already).
+    moved to `device` (a no-op when they are there already). With
+    `cfg.collect_round_stats` the fixed-count loop also returns per-round
+    summaries as `aux["round_stats"]` (the early-exit loop does not).
     """
     _check_ported(cfg, training, axis_name, halo)
     dev = resolve_device(device)
@@ -366,6 +386,10 @@ def query_sat_apply(params: dict, cfg: QuerySATConfig, batch: SatBatch,
         upd_clause_state = torch.where(
             cont, blend_c,
             torch.where(newly_done, new_clause_state, clause_state))
+        if collect:
+            round_stats.append(_round_stats(
+                logit_loss, query, variables_grad, new_variables,
+                new_clause_state, logits, sat))
         return (upd_variables, upd_clause_state, upd_logits, upd_best,
                 loss_sum, loss_count, steps, done | sat)
 
@@ -379,6 +403,8 @@ def query_sat_apply(params: dict, cfg: QuerySATConfig, batch: SatBatch,
         torch.zeros((), dtype=torch.int32, device=dev),       # steps taken
         torch.zeros((), dtype=torch.bool, device=dev),        # done flag
     )
+    collect = cfg.collect_round_stats and not early_exit
+    round_stats: list[dict] = []
     for step_idx in range(rounds):
         carry = round_body(carry, step_idx)
         if early_exit and bool(carry[-1]):
@@ -396,4 +422,6 @@ def query_sat_apply(params: dict, cfg: QuerySATConfig, batch: SatBatch,
         "variables_state": variables,
         "clause_state": clause_state,
     }
+    if round_stats:
+        aux["round_stats"] = _stack_round_stats(round_stats)
     return out_logits, loss, steps_taken, aux

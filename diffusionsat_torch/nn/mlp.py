@@ -88,8 +88,9 @@ def mlp_apply(params: dict, cfg: MLPConfig, x: torch.Tensor,
 
     if compute_dtype is not None or x.dtype != torch.float32:
         raise NotImplementedError(
-            "mlp_apply runs f32 only; reduced-precision modes wait for the "
-            "ROADMAP item 'Dense QuerySAT' (block_bf16, compute_dtype)")
+            "mlp_apply runs f32 only; reduced-precision modes (block_bf16, "
+            "compute_dtype) wait for the ROADMAP item 'Train step and "
+            "optimizer'")
     act = _ACTS[cfg.activation]
     out_act = _ACTS[cfg.out_activation]
     n = len(params["w"])

@@ -4,8 +4,10 @@
         --model_ckpt pretrained/query_sat_3sat_diffusion_mlk64.npz
 
 Counterpart of the TPU package's root `diffusion_sampler.py`. It reads
-`.npz` params files only and runs the flat chain on the card (or on the
-CPU with `--device cpu`).
+`.npz` params files only and runs on the card (or on the CPU with
+`--device cpu`). The sampler picks the layout itself: the dense block chain
+for a formula of at most 128 variables and 576 clauses, the flat chain with
+the segsum kernel above that.
 """
 
 from __future__ import annotations
@@ -48,16 +50,15 @@ def main(argv=None):
     cfg = QuerySATConfig(feature_maps=args.feature_maps,
                          query_maps=args.query_maps,
                          test_rounds=args.test_rounds)
-    # the TPU package runs small formulas on its dense chain; only the flat
-    # chain is ported, so every formula runs flat here
-    print("running the flat reverse chain (the dense chain is not ported)")
     sampler = DiffusionSampler.from_checkpoint(
-        args.model_ckpt, args.dimacs, cfg=cfg, device=args.device, dense=False,
+        args.model_ckpt, args.dimacs, cfg=cfg, device=args.device,
         diffusion_steps=args.diffusion_steps,
         test_rounds=args.test_rounds, seed=args.seed,
         freeze_sat=args.freeze != "off",
         freeze_from=(args.diffusion_steps * 3 // 4
                      if args.freeze == "late" else 0))
+    print(f"running the {'dense' if sampler.dense else 'flat'} reverse "
+          f"chain ({sampler.graphs_per_batch} copies a batch)")
     counts = sampler.samples(args.n_samples)
     print(f"success rate: {sampler.success_rate:.4f}")
     print(f"{len(counts)} distinct solutions over "

@@ -51,7 +51,9 @@ def load_params(path: str | Path) -> tuple[Any, dict]:
 def params_from_numpy(tree: Any, device: str | torch.device = "cuda") -> Any:
     """Carry a params tree (nested dicts/lists of numpy arrays, as
     `load_params` returns) onto torch tensors on `device`, keeping every
-    shape and dtype."""
+    shape and dtype. The flat and the dense QuerySAT share one tree (the
+    MLPs act on the last axis only), so the dense model needs no case of
+    its own here."""
     from diffusionsat_torch.device import resolve_device
 
     dev = resolve_device(device)

@@ -1,0 +1,122 @@
+"""Evaluation metrics over flat and dense batches.
+
+Counterpart of the TPU package's `train/metrics.py` for the solving eval:
+each metric accumulates over `update_state(model_output, batch)` calls and
+can log to stdout or a JSON-lines file. `model_output["prediction"]` holds
+the chosen head's logits, [V] for a `SatBatch` and [G, Vg] for a
+`DenseSatBatch`.
+"""
+
+from __future__ import annotations
+
+import json
+from abc import ABC, abstractmethod
+from pathlib import Path
+from statistics import mean, median_high
+
+import numpy as np
+import torch
+
+from diffusionsat_torch.graph.batch import SatBatch
+from diffusionsat_torch.graph.dense_batch import DenseSatBatch
+from diffusionsat_torch.losses.sat import is_graph_sat
+from diffusionsat_torch.ops import dense_ops
+
+
+class Metric(ABC):
+    """update/log contract."""
+
+    @abstractmethod
+    def update_state(self, model_output: dict,
+                     batch: SatBatch | DenseSatBatch) -> None:
+        ...
+
+    @abstractmethod
+    def get_values(self, reset_state: bool = True) -> dict:
+        ...
+
+    def reset_state(self) -> None:
+        ...
+
+    def log_in_stdout(self, step: int | None = None, reset_state=True):
+        vals = self.get_values(reset_state)
+        prefix = f"[step {step}] " if step is not None else ""
+        print(prefix + " ".join(f"{k}={v:.4f}" for k, v in vals.items()))
+
+    def log_in_file(self, file: str, step: int | None = None,
+                    reset_state=True):
+        vals = self.get_values(reset_state)
+        rec = {"step": step, **{k: float(v) for k, v in vals.items()}}
+        with Path(file).open("a") as f:
+            f.write(json.dumps(rec) + "\n")
+
+
+def sat_accuracy(predictions: torch.Tensor, batch: SatBatch | DenseSatBatch
+                 ) -> tuple[float, np.ndarray]:
+    """(per-variable accuracy vs stored solutions, per-graph solved bools
+    of the real graphs). The SAT check runs on the batch's device; the
+    bit comparison on the host."""
+    dense = isinstance(batch, DenseSatBatch)
+    node_dims = 2 if dense else 1
+    logits = predictions if predictions.dim() == node_dims + 1 \
+        else predictions[..., None]
+    logits = logits.to(batch.device)
+    logits_np = logits.detach().cpu().numpy()
+    pred_bits = np.round(1.0 / (1.0 + np.exp(-logits_np)))
+    sols = batch.solutions.cpu().numpy()
+    var_mask = batch.var_mask.cpu().numpy()
+    n_vars = max(var_mask.sum(), 1.0)
+    acc = float((np.equal(pred_bits[..., 0], sols) * var_mask).sum() / n_vars)
+    graph_sat = dense_ops.is_graph_sat if dense else is_graph_sat
+    solved = graph_sat(logits, batch)[:, 0].cpu().numpy()
+    graph_mask = batch.graph_mask.cpu().numpy() > 0
+    return acc, solved[graph_mask] > 0.5
+
+
+class SATAccuracy(Metric):
+    """Mean per-variable accuracy + fraction of fully solved graphs."""
+
+    def __init__(self) -> None:
+        self.accs: list[float] = []
+        self.solved: list[np.ndarray] = []
+
+    def update_state(self, model_output, batch):
+        acc, solved = sat_accuracy(model_output["prediction"], batch)
+        self.accs.append(acc)
+        self.solved.append(solved)
+
+    def get_values(self, reset_state=True):
+        accs, solved = self.accs, self.solved
+        out = {
+            "accuracy": float(np.mean(accs)) if accs else 0.0,
+            "total_accuracy": float(np.concatenate(solved).mean())
+            if solved else 0.0,
+        }
+        if reset_state:
+            self.reset_state()
+        return out
+
+    def reset_state(self):
+        self.accs, self.solved = [], []
+
+
+class StepStatistics(Metric):
+    """Mean/median rounds taken."""
+
+    def __init__(self) -> None:
+        self.steps: list[int] = []
+
+    def update_state(self, model_output, batch):
+        self.steps.append(int(model_output["steps_taken"]) + 1)
+
+    def get_values(self, reset_state=True):
+        out = {
+            "mean_steps": mean(self.steps) if self.steps else 0.0,
+            "median_steps": median_high(self.steps) if self.steps else 0.0,
+        }
+        if reset_state:
+            self.reset_state()
+        return out
+
+    def reset_state(self):
+        self.steps = []

@@ -11,10 +11,12 @@ import jax
 from diffusionsat_tpu.graph.batch import BucketSpec as JBucketSpec
 from diffusionsat_tpu.graph.batch import build_batch as jbuild_batch
 from diffusionsat_torch.graph.batch import BucketSpec, SatBatch, build_batch
+from diffusionsat_torch.graph.dense_batch import DenseSatBatch
 from diffusionsat_torch.train.checkpoint import params_from_numpy
 
 ASSETS = "diffusionsat_tpu/data/assets"
 FIELDS = [f.name for f in dataclasses.fields(SatBatch)]
+DENSE_FIELDS = [f.name for f in dataclasses.fields(DenseSatBatch)]
 
 
 def random_formulas(seed, n_formulas=4, lo=4, hi=10, clause_ratio=3):
@@ -56,8 +58,9 @@ def load_cnf_clauses(name):
     return cnf.number_of_vars(), cnf.clauses()
 
 
-def assert_batches_equal(jb, tb):
-    for name in FIELDS:
+def assert_batches_equal(jb, tb, fields=FIELDS):
+    """Every field equal in value, dtype and shape (flat or dense batch)."""
+    for name in fields:
         a, b = getattr(jb, name), getattr(tb, name)
         if a is None or b is None:
             assert a is None and b is None, name
@@ -67,4 +70,30 @@ def assert_batches_equal(jb, tb):
         assert a.dtype == b.dtype, (name, a.dtype, b.dtype)
         assert a.shape == b.shape, name
         np.testing.assert_array_equal(a, b, err_msg=name)
-    assert (jb.V, jb.C, jb.E, jb.G) == (tb.V, tb.C, tb.E, tb.G)
+    dims = "G Vg Cg" if fields is DENSE_FIELDS else "V C E G"
+    for d in dims.split():
+        assert getattr(jb, d) == getattr(tb, d), d
+
+
+def var_offsets(flat):
+    """(offsets [n+1], n_vars [n]) of the real graphs of a flat batch."""
+    nv = np_of(flat.n_vars_per_graph).astype(np.int64)[:int(flat.n_graphs)]
+    return np.concatenate([[0], np.cumsum(nv)]), nv
+
+
+def dense_vars_from_flat(x_flat, flat, dense):
+    """[V, ...] -> [G, Vg, ...] on real rows (zeros elsewhere)."""
+    off, nv = var_offsets(flat)
+    out = np.zeros((dense.G, dense.Vg) + x_flat.shape[1:], x_flat.dtype)
+    for g in range(len(nv)):
+        out[g, :nv[g]] = x_flat[off[g]:off[g + 1]]
+    return out
+
+
+def flat_vars_from_dense(x_dense, flat):
+    """[G, Vg, ...] -> [V, ...] real rows (zeros elsewhere)."""
+    off, nv = var_offsets(flat)
+    out = np.zeros((flat.V,) + x_dense.shape[2:], x_dense.dtype)
+    for g in range(len(nv)):
+        out[off[g]:off[g + 1]] = x_dense[g, :nv[g]]
+    return out

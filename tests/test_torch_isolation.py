@@ -60,7 +60,7 @@ def test_no_forbidden_import(path):
 
 def test_no_port_file_names_the_tpu_stack():
     for path in sorted(PORT.rglob("*")):
-        if path.suffix not in (".py", ".cu", ".cuh", ".h"):
+        if path.suffix not in (".py", ".cu", ".cuh", ".h", ".cpp"):
             continue
         text = path.read_text().lower()
         for word in FORBIDDEN:
@@ -73,6 +73,16 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
     from diffusionsat_torch.device import resolve_device
     from diffusionsat_torch.diffusion.sampler import DiffusionSampler
     from diffusionsat_torch.graph.batch import BucketSpec, build_batch
+    from diffusionsat_torch.graph.dense_batch import densify_batches
+    from diffusionsat_torch.models.query_sat_dense import (
+        query_sat_dense_apply,
+    )
+    from diffusionsat_torch.solve_eval import main as eval_main
+    from diffusionsat_torch.train.loop import (
+        evaluate_metrics,
+        make_predict_step,
+        plan_batches,
+    )
     from diffusionsat_torch.models.query_sat import (
         QuerySATConfig,
         query_sat_apply,
@@ -90,19 +100,35 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         query_sat_apply(params, cfg, batch)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        DiffusionSampler(params, cfg, cnf, dense=False)
+    (dense,) = densify_batches([batch])
+    ckpt = str(REPO / "pretrained" / "query_sat_3sat_diffusion_mlk64.npz")
+    for call in (
+            lambda: query_sat_dense_apply(params, cfg, dense),
+            lambda: DiffusionSampler(params, cfg, cnf, dense=False),
+            lambda: DiffusionSampler(params, cfg, cnf),
+            lambda: make_predict_step(cfg),
+            lambda: plan_batches([batch]),
+            lambda: evaluate_metrics(params, cfg, [batch], [], None),
+            lambda: eval_main(["--model_ckpt", ckpt, "--data_dir",
+                               str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not list(tmp_path.iterdir())    # refused before any data work
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_numpy({"w": [params["lit_mlp"]["w"][0].numpy()]})
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--dimacs", str(ASSETS / "satlib" / "uf20-synth-1.cnf"),
-              "--model_ckpt",
-              str(REPO / "pretrained" / "query_sat_3sat_diffusion_mlk64.npz")])
+              "--model_ckpt", ckpt])
     # the same calls run when the CPU is asked for
     assert resolve_device("cpu").type == "cpu"
     out = query_sat_apply(params, cfg, batch, device="cpu")
     assert out[0].shape == (8, 1)
     DiffusionSampler(params, cfg, cnf, dense=False, device="cpu")
+    assert DiffusionSampler(params, cfg, cnf, device="cpu").dense
+    assert query_sat_dense_apply(params, cfg, dense, device="cpu")[0].shape \
+        == (dense.G, dense.Vg, 1)
+    assert evaluate_metrics(params, cfg, plan_batches([batch], "cpu"), [],
+                            None, device="cpu") == {}
 
 
 def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):

@@ -1,4 +1,5 @@
-"""Port vs TPU package: the flat reverse-diffusion chain and the sampler.
+"""Port vs TPU package: the flat and dense reverse-diffusion chains and the
+sampler.
 
 The TPU package's chain draws from one key; the test replays its key
 schedule (rounding uniforms, predict-mode labels, per-round noise, final
@@ -20,6 +21,8 @@ from _torch_parity import (
     ASSETS,
     assert_batches_equal,
     batch_pair,
+    DENSE_FIELDS,
+    FIELDS,
     load_cnf_clauses,
     np_of,
     torch_params,
@@ -39,16 +42,18 @@ MLK64 = "pretrained/query_sat_3sat_diffusion_mlk64.npz"
 
 
 def _replay_draws(key, N, V, rounds, final_sample):
-    """The numbers the TPU package's chain draws from `key`."""
+    """The numbers the TPU package's chain draws from `key`. `V` is the
+    variable shape: an int (flat) or (G, Vg) (dense)."""
+    V = (V,) if isinstance(V, int) else tuple(V)
     u, labels, noise = [], [], []
     for _ in range(N):
         key, k_round, k_model = jax.random.split(key, 3)
-        u.append(np.asarray(jax.random.uniform(k_round, (V, 1))))
+        u.append(np.asarray(jax.random.uniform(k_round, V + (1,))))
         _, k_labels, _, key_loop = jax.random.split(k_model, 4)
         labels.append(np.asarray(jax.random.randint(
-            k_labels, (V,), 0, 2, dtype=jnp.int32)))
+            k_labels, V, 0, 2, dtype=jnp.int32)))
         noise.append(np.stack([np.asarray(jax.random.normal(
-            jax.random.fold_in(key_loop, r), (V, 4), jnp.float32))
+            jax.random.fold_in(key_loop, r), V + (4,), jnp.float32))
             for r in range(rounds)]))
     draws = dict(rounding_uniforms=torch.from_numpy(np.stack(u)),
                  labels=torch.from_numpy(np.stack(labels)),
@@ -56,7 +61,7 @@ def _replay_draws(key, N, V, rounds, final_sample):
     if final_sample:
         _, k_fin = jax.random.split(key)
         draws["final_uniforms"] = torch.from_numpy(
-            np.array(jax.random.uniform(k_fin, (V,))))
+            np.array(jax.random.uniform(k_fin, V)))
     return draws
 
 
@@ -84,6 +89,62 @@ def _chains_agree(jparams, cfg_kw, formulas, chain_kw, with_plans, seed,
 
 SMALL_BUCKET = dict(max_vars=64, max_clauses=384, max_edges=1024,
                     max_graphs=4)
+
+
+def _dense_chains_agree(jparams, cfg_kw, formulas, chain_kw, seed):
+    """Both packages' dense chains on the densified batch of `formulas`:
+    equal bits, solved flags and freeze steps."""
+    from diffusionsat_tpu.graph.dense_batch import (
+        densify_batches_quantized as jdensify,
+    )
+    from diffusionsat_torch.graph.dense_batch import densify_batches_quantized
+
+    sols = [[0] * n for n, _ in formulas]
+    jb, tb = batch_pair(formulas, sols, **SMALL_BUCKET)
+    (jd,), (td,) = jdensify([jb], g_quantum=4), \
+        densify_batches_quantized([tb], g_quantum=4)
+    assert_batches_equal(jd, td, DENSE_FIELDS)
+    key = jax.random.key(seed)
+    jout = jsam.make_dense_diffusion_chain(
+        jqs.QuerySATConfig(**cfg_kw), **chain_kw)(jparams, jd, key)
+    draws = _replay_draws(key, chain_kw["diffusion_steps"], (jd.G, jd.Vg),
+                          chain_kw["test_rounds"],
+                          chain_kw.get("final_sample", False))
+    tout = tsam.make_dense_diffusion_chain(
+        tqs.QuerySATConfig(**cfg_kw), **chain_kw)(
+            torch_params(jparams), td, None, **draws)
+    for got, want in zip(tout, jout):
+        assert tuple(got.shape) == np.shape(want)
+        np.testing.assert_array_equal(np_of(got), np.asarray(want))
+    return np_of(tout[0]), np_of(tout[1])
+
+
+@pytest.mark.parametrize("chain_kw", [
+    dict(diffusion_steps=1, test_rounds=3),
+    dict(diffusion_steps=4, test_rounds=3),
+    dict(diffusion_steps=4, test_rounds=2, final_sample=True,
+         temperature=0.7, freeze_from=2),
+    dict(diffusion_steps=4, test_rounds=2, freeze_sat=False,
+         self_supervised=True, use_baseline_sampling=False),
+])
+def test_small_dense_chain_bits_equal(chain_kw):
+    cfg_kw = dict(feature_maps=16, query_maps=8, logit_maps=4)
+    jparams = jqs.query_sat_init(jax.random.key(2), jqs.QuerySATConfig(
+        **cfg_kw))
+    formulas = [load_cnf_clauses(f"satlib/uf20-synth-{i}.cnf")
+                for i in (1, 2)]
+    _dense_chains_agree(jparams, cfg_kw, formulas, chain_kw, seed=3)
+
+
+def test_mlk64_dense_chain_bits_equal():
+    params, meta = load_params(MLK64)
+    names = {f.name for f in dataclasses.fields(tqs.QuerySATConfig)}
+    cfg_kw = {k: v for k, v in meta["config"].items() if k in names}
+    formula = load_cnf_clauses("satlib/uf20-synth-1.cnf")
+    _, solved = _dense_chains_agree(
+        params, cfg_kw, [formula] * 3,
+        dict(diffusion_steps=4, test_rounds=4), seed=0)
+    assert solved[:3].sum() >= 1   # the flagship solves uf20 in 4 steps
 
 
 @pytest.mark.parametrize("chain_kw,with_plans", [
@@ -153,11 +214,48 @@ def test_sampler_counts_only_satisfying_samples():
         asgn.assign_all_from_int(sol)
         assert asgn.satisfiable()
     # the default picks the layout as the TPU package does: a formula this
-    # small would run on the dense chain, which is not ported
-    for dense in (True, None):
-        with pytest.raises(NotImplementedError, match="Dense QuerySAT"):
-            tsam.DiffusionSampler(params, cfg, cnf, dense=dense,
+    # small runs on the dense chain, with the same check of every sample
+    dense = tsam.DiffusionSampler(params, cfg, cnf, diffusion_steps=3,
+                                  test_rounds=2, graphs_per_batch=6, seed=2,
                                   device="cpu")
+    assert dense.dense and dense.plans is None
+    for sol in dense.samples(4, max_batches=3):
+        asgn = VariableAssignment(4, cnf.clauses())
+        asgn.assign_all_from_int(sol)
+        assert asgn.satisfiable()
+
+
+def _chain_cnf(n_vars, n_clauses):
+    """A satisfiable formula of the given size (implication chains)."""
+    clauses = [[-(i % (n_vars - 1) + 1), i % (n_vars - 1) + 2]
+               for i in range(n_clauses)]
+    return n_vars, clauses
+
+
+@pytest.mark.parametrize("n_vars,n_clauses,want_dense", [
+    (128, 576, True), (129, 576, False), (128, 577, False), (20, 91, True)])
+def test_auto_layout_choice_equals_tpu_sampler(n_vars, n_clauses,
+                                               want_dense):
+    from diffusionsat_tpu.graph.dense_batch import DenseSatBatch as JDense
+    from diffusionsat_torch.graph.dense_batch import DenseSatBatch
+
+    n, clauses = _chain_cnf(n_vars, n_clauses)
+    jcfg = jqs.QuerySATConfig(feature_maps=8, query_maps=8)
+    jparams = jqs.query_sat_init(jax.random.key(0), jcfg)
+    kw = dict(graphs_per_batch=None if want_dense and n_vars == 20 else 3)
+    js = jsam.DiffusionSampler(jparams, jcfg, JCNF(n_vars=n, clauses=clauses),
+                               **kw)
+    ts = tsam.DiffusionSampler(
+        torch_params(jparams), tqs.QuerySATConfig(feature_maps=8,
+                                                  query_maps=8),
+        CNF(n_vars=n, clauses=clauses), device="cpu", **kw)
+    assert ts.dense == js.dense == want_dense
+    assert ts.graphs_per_batch == js.graphs_per_batch
+    assert isinstance(ts.batch, DenseSatBatch) == isinstance(js.batch, JDense)
+    assert_batches_equal(js.batch, ts.batch,
+                         DENSE_FIELDS if want_dense else FIELDS)
+    if want_dense and n_vars == 20:
+        assert ts.graphs_per_batch == 256 and ts.batch.G == 256
 
 
 def test_freeze_regimes_set_fixed_steps():
@@ -180,11 +278,20 @@ def test_freeze_regimes_set_fixed_steps():
 
 
 def test_flagship_sampler_on_uf20():
+    _flagship_samples_satisfy(dense=False)
+
+
+def test_flagship_dense_sampler_on_uf20():
+    _flagship_samples_satisfy(dense=None)
+
+
+def _flagship_samples_satisfy(dense):
     params, cfg = _flagship_params()
     cnf = CNF.load(f"{ASSETS}/satlib/uf20-synth-1.cnf")
     sampler = tsam.DiffusionSampler(params, cfg, cnf, diffusion_steps=4,
                                     test_rounds=4, graphs_per_batch=8,
-                                    dense=False, device="cpu")
+                                    dense=dense, device="cpu")
+    assert sampler.dense == (dense is None)
     counts = sampler.samples(8, max_batches=1)
     assert sum(counts.values()) >= 1
     for sol in counts:
@@ -200,7 +307,7 @@ def test_cli_samples_on_cpu(tmp_path, capsys):
                   "--diffusion_steps", "2", "--test_rounds", "2",
                   "--device", "cpu", "--out", str(out)])
     printed = capsys.readouterr().out
-    assert "success rate" in printed and "flat reverse chain" in printed
+    assert "success rate" in printed and "dense reverse chain" in printed
     counts = json.loads(out.read_text())
     cnf = CNF.load(f"{ASSETS}/satlib/uf20-synth-2.cnf")
     for sol in counts:
