@@ -31,18 +31,38 @@ Phases, each of which raises (exit code 1) on failure:
    diffusion steps and 32 rounds, on `uf20-synth-1.cnf` (flat, and dense as
    the sampler picks by itself) and on the primes formula; every counted
    sample is checked to satisfy its formula, and the kernel must have been
-   launched on the flat chain.
+   launched on the flat chain;
+6. training (a main path), at full width (128 feature maps, 128 query maps,
+   8 heads, 32 train rounds) on 20 000-node batches of a cut training set
+   (4000 instances where a real run takes 100 000: data quantity, not width
+   or depth): the kernel's backward against autograd of the plain version,
+   also for sliced cotangents; one forward and backward of the flagship's
+   params through the kernel against the plain path (loss, all 24 gradient
+   tensors over 4 and over 32 rounds, printed beside the plain path's own
+   run-to-run spread and beside both with the head losses left unsorted;
+   launches per step against the reckoned 128 each way); 150 optimizer
+   steps each of the dense f32, the dense block-bf16 and the flat kernel
+   step from a seeded init (the mean loss of the last fifth must lie below
+   0.9 of the first fifth's; steps per second; peak memory; the flat step
+   must launch the kernel 128 times each way per step, the flat
+   self-conditioning step 256 times); `python -m
+   diffusionsat_torch.diffusion_training` in-process in both layouts with
+   one eval, checkpoints, a restore and the exported params read back by
+   the solving eval; and a profile of one train step per layout.
 
 Every line of standard output is one JSON object, except the card line of
 `nvidia-smi`, the eval CLI's count of test batches and the sampler's own
-note when it stops a formula early for too few satisfying samples. The line before the last lists the kernels; the last line is
-`{"ok": true, "device": {...}}`. Without CUDA, or run outside a checkout of
-the repository, the script exits non-zero and prints no result.
+note when it stops a formula early for too few satisfying samples. The
+line before the last lists the kernels; the last line is `{"ok": true,
+"device": {...}}`. Without CUDA, or run outside a checkout of the
+repository, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import functools
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -68,6 +88,23 @@ KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 # 64 noisy rounds diverge per graph; the solved fractions must agree
 SOLVED_FRACTION_TOL = 0.05
+# one training forward and backward, kernel against plain path: the loss,
+# and every gradient tensor to this share of its largest entry (floored at
+# a hundredth of the largest gradient of all). The plain path, whose atomics
+# sum in no fixed order, differs from itself by 6e-4 to 4e-3 between two
+# runs on an H100, over 4 rounds as over 32, so the mark cannot be tighter.
+# The rank sort of the head losses is not what amplifies the summation
+# order: with the heads left unsorted both errors read the same
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = 1e-2
+# training: the mean loss of the last fifth of the steps against the first
+TRAIN_STEPS = 150
+LOSS_FALL_FACTOR = 0.9
+# launches of each direction in one 32-round flat train step: 2 a round
+# forward, and 2 a round as the backward of the other direction
+LAUNCHES_PER_TRAIN_STEP = 128
+# the cut training set of the smoke run
+TRAIN_SIZE = 4000
 # the solving eval: the repo's record reads 0.906 on a 2000-instance split
 # (binomial standard error 0.0065); this run's split is another draw of the
 # same distribution, so the window is about 3.5 standard errors wide
@@ -92,18 +129,25 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
-    from diffusionsat_torch import solve_eval
+    from diffusionsat_torch import diffusion_training, solve_eval
+    from diffusionsat_torch.config import parse_config
     from diffusionsat_torch.data.bench_workloads import threshold_3sat_batch
+    from diffusionsat_torch.data.datasets import PackedBatches
     from diffusionsat_torch.device import resolve_device
     from diffusionsat_torch.diffusion.sampler import DiffusionSampler
+    from diffusionsat_torch.diffusion.schedule import (
+        construct_training_input,
+    )
     from diffusionsat_torch.graph.dense_batch import (
         DenseSatBatch,
         densify_batches_quantized,
     )
     from diffusionsat_torch.losses.sat import is_graph_sat
+    from diffusionsat_torch.models import query_sat as query_sat_module
     from diffusionsat_torch.models.query_sat import (
         QuerySATConfig,
         query_sat_apply,
+        query_sat_init,
     )
     from diffusionsat_torch.models.query_sat_dense import (
         query_sat_dense_apply,
@@ -111,9 +155,20 @@ def main() -> int:
     from diffusionsat_torch.ops import dense_ops, segsum
     from diffusionsat_torch.sat.native.build import build as build_solver
     from diffusionsat_torch.sat.cnf import CNF, VariableAssignment
+    from diffusionsat_torch.train.adabelief import (
+        adabelief,
+        cosine_decay_schedule,
+    )
     from diffusionsat_torch.train.checkpoint import (
         load_params,
         params_from_numpy,
+    )
+    from diffusionsat_torch.train.loop import (
+        TrainState,
+        make_planned_train_step,
+        make_selfsupervised_train_step,
+        make_train_step_for,
+        plan_batches,
     )
 
     dev = resolve_device("cuda")  # also switches TF32 off
@@ -168,13 +223,10 @@ def main() -> int:
          batches=len(eval_batches),
          instances=sum(int(b.n_graphs) for b in eval_batches))
 
-    # -- phase 2: kernel vs plain at the main path's shapes ----------------
+    # the flagship's params and the 20 000-node batch, flat with its plans
+    # and re-blocked, shared by the phases below
     tree, meta = load_params(CKPT)
     params = params_from_numpy(tree, dev)
-    cfg32 = QuerySATConfig.from_meta(meta["config"], test_rounds=32)
-    primes_sampler = DiffusionSampler(params, cfg32, CNF.load(PRIMES),
-                                      diffusion_steps=32, test_rounds=32,
-                                      dense=False, seed=1, device=dev)
     big_batch, _ = threshold_3sat_batch(np.random.default_rng(0), 20000)
     big_plans = segsum.build_batch_plans(big_batch).to(dev)
     big_dense = densify_batches_quantized([big_batch])[0].to(dev)
@@ -182,6 +234,27 @@ def main() -> int:
         big_batch.n_vars_per_graph.numpy().astype(np.int64)[
             :int(big_batch.n_graphs)])])
     big_batch = big_batch.to(dev)
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or \
+            getattr(e, "self_cuda_time_total", 0)
+
+    def cuda_kernels(prof):
+        return [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+
+    def segsum_us(kernels):
+        return sum(dev_us(e) for e in kernels if "gather_segsum" in e.key)
+
+
+    # -- phase 2: kernel vs plain at the main path's shapes ----------------
+    cfg32 = QuerySATConfig.from_meta(meta["config"], test_rounds=32)
+    primes_sampler = DiffusionSampler(params, cfg32, CNF.load(PRIMES),
+                                      diffusion_steps=32, test_rounds=32,
+                                      dense=False, seed=1, device=dev)
     eval_plans = segsum.build_batch_plans(eval_batches[0]).to(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -347,13 +420,6 @@ def main() -> int:
     # where a round's time goes: device busy time and the top kernels over
     # 8 rounds on each batch (torch.profiler, CUDA kernel events), against
     # the wall time of the same 8 rounds without the profiler
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or \
-            getattr(e, "self_cuda_time_total", 0)
-
     uf20_dense = DiffusionSampler(params, cfg32, CNF.load(UF20),
                                   diffusion_steps=32, test_rounds=32, seed=0,
                                   device=dev)
@@ -384,8 +450,7 @@ def main() -> int:
         if not kw and ({r[1] for r in runs} != {8} or rounds_run != 8):
             raise RuntimeError(f"profile of {name}: the early exit cut a "
                                "run short of 8 rounds")
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+        kernels = cuda_kernels(prof)
         busy_us = sum(dev_us(e) for e in kernels)
         top = sorted(kernels, key=dev_us, reverse=True)[:8]
         emit(phase="profile_8_rounds", batch=name, wall_ms=wall * 1e3,
@@ -393,8 +458,7 @@ def main() -> int:
              device_busy_ms=busy_us / 1e3,
              device_busy_share=busy_us / 1e3 / (wall * 1e3),
              kernels_per_round=sum(e.count for e in kernels) / 8,
-             segsum_busy_ms=sum(dev_us(e) for e in kernels
-                                if "gather_segsum" in e.key) / 1e3,
+             segsum_busy_ms=segsum_us(kernels) / 1e3,
              top=[(e.key[:60], dev_us(e) / 1e3, e.count) for e in top])
 
     # -- phase 4: the solving eval, a main path ---------------------------
@@ -467,9 +531,423 @@ def main() -> int:
             raise RuntimeError(f"segsum kernel ({direction}) was not "
                                "launched on the sampler path")
 
+    # -- phase 6: training, a main path -----------------------------------
+    launches_of = {}
+    F = 128
+
+    # -- the kernel's backward against autograd of the plain version --
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    for fwd_name, fn, plain_plan in (
+            ("lit_to_clause", segsum.plan_lit_to_clause,
+             big_plans.lit_to_clause),
+            ("clause_to_lit", segsum.plan_clause_to_lit,
+             big_plans.clause_to_lit)):
+        bwd_name = ("clause_to_lit" if fwd_name == "lit_to_clause"
+                    else "lit_to_clause")
+        x0 = torch.randn((plain_plan.num_sources, F), generator=gen,
+                         device=dev)
+        w = torch.randn((F, plain_plan.num_segments), generator=gen,
+                        device=dev)
+        half = plain_plan.num_segments // 2
+        cotangents = {
+            "contiguous": lambda o: (o * w.t()).sum(),
+            # column stride M: the wrapper makes it contiguous
+            "transposed": lambda o: (o.t() * w).sum(),
+            "expanded": lambda o: o.sum(),
+            "sliced": lambda o: (o[:, :F // 2] ** 2).sum() -
+            o[half:].sum() + (o[:half, F // 2:] * 3.0).sum(),
+        }
+        for cot_name, loss_of in cotangents.items():
+            grads = {}
+            for path in ("kernel", "plain"):
+                x = x0.clone().requires_grad_(True)
+                segsum.reset_launch_counts()
+                out = fn(x, big_plans) if path == "kernel" else \
+                    segsum.segsum_plain(x, plain_plan)
+                loss_of(out).backward()
+                grads[path] = x.grad
+                if path == "kernel":
+                    counted = dict(segsum.LAUNCHES)
+            sync()
+            torch.testing.assert_close(grads["kernel"], grads["plain"],
+                                       **KERNEL_TOL)
+            if counted != {fwd_name: 1, bwd_name: 1}:
+                raise RuntimeError(
+                    f"backward of {fwd_name}: launches {counted}")
+            emit(phase="kernel_backward_vs_plain", forward=fwd_name,
+                 backward=bwd_name, cotangent=cot_name, F=F,
+                 rows=plain_plan.num_sources,
+                 max_abs_err=(grads["kernel"] - grads["plain"]
+                              ).abs().max().item(),
+                 launches=counted)
+
+    # -- the cut training set ---------------------------------------
+    run_cfg = parse_config([
+        "--train_size", str(TRAIN_SIZE), "--test_size", "2000",
+        "--data_dir", str(data_dir)])
+    t0 = time.perf_counter()
+    train_batches = list(diffusion_training.build_dataset(
+        run_cfg).train_data())
+    emit(phase="train_split", seconds=time.perf_counter() - t0,
+         instances=sum(int(b.n_graphs) for b in train_batches),
+         batches=len(train_batches), cut_from=100000,
+         note="data quantity is cut, not width or depth")
+    dense_train = [b.to(dev) for b in
+                   densify_batches_quantized(train_batches)]
+    flat_train = plan_batches(train_batches, dev)
+    plans_of = {id(b): p for b, p in flat_train}
+
+    # -- one training forward and backward, kernel against plain path --
+    # The flagship's params on the first training batch, with the draws
+    # of a training step pinned: the batch's own solutions as labels,
+    # noise level 0.5, the noisy input drawn from the labels at that
+    # level, and the per-round noise, over 4 and over 32 rounds. The
+    # kernel path must lie within TRAIN_GRAD_TOL of the plain path. The
+    # plain path, which sums with atomics in no fixed order, differs from
+    # itself between two runs; that spread is printed beside the error.
+    # Both are measured once more with the head losses weighted in head
+    # order instead of sorted by size, to show what the sort adds.
+    cfg_train = QuerySATConfig.from_meta(meta["config"])
+    grad_batch, grad_plans = flat_train[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    V = grad_batch.V
+    ns = torch.tensor(0.5, device=dev)
+    draws = dict(
+        labels=grad_batch.solutions, noise_scale=ns,
+        noisy_num=construct_training_input(grad_batch.solutions, ns, gen),
+        round_noise=torch.randn((cfg_train.train_rounds, V, 4),
+                                generator=gen, device=dev))
+    leaves = [p for m in params.values() for k in ("w", "b")
+              for p in m[k]]
+
+    def head_order_loss(per_graph_loss, logit_maps):
+        costs = torch.square(torch.arange(
+            1, logit_maps + 1, dtype=torch.float32, device=dev))
+        return torch.sum(per_graph_loss * costs) / torch.sum(costs)
+
+    def loss_and_grads(plans, rounds):
+        for p in leaves:
+            p.requires_grad_(True)
+        segsum.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        _, loss, steps, _ = query_sat_apply(
+            params, cfg_train, grad_batch, None, training=True,
+            rounds=rounds, plans=plans, device=dev, **draws)
+        sync()
+        fwd_launches = dict(segsum.LAUNCHES)
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, leaves)
+        sync()
+        t2 = time.perf_counter()
+        for p in leaves:
+            p.requires_grad_(False)
+        return dict(
+            loss=loss.item(), steps=int(steps), grads=grads,
+            forward_launches=fwd_launches,
+            backward_launches={d: segsum.LAUNCHES[d] - fwd_launches[d]
+                               for d in fwd_launches},
+            forward_s=t1 - t0, backward_s=t2 - t1)
+
+    def grad_err(ra, rb):
+        """Largest error of any tensor, as a share of that tensor's
+        largest entry (floored at a hundredth of the largest of all)."""
+        top = max(g.abs().max().item() for g in rb["grads"])
+        return max((ga - gb).abs().max().item() /
+                   max(gb.abs().max().item(), 1e-2 * top)
+                   for ga, gb in zip(ra["grads"], rb["grads"])), top
+
+    loss_and_grads(grad_plans, 2)        # warm-up
+    loss_and_grads(None, 2)
+    k4, p4 = loss_and_grads(grad_plans, 4), loss_and_grads(None, 4)
+    err4, top4 = grad_err(k4, p4)
+    plain_spread4, _ = grad_err(loss_and_grads(None, 4), p4)
+    rp = loss_and_grads(None, cfg_train.train_rounds)
+    rk = loss_and_grads(grad_plans, cfg_train.train_rounds)
+    rp2 = loss_and_grads(None, cfg_train.train_rounds)
+    err32, top32 = grad_err(rk, rp)
+    plain_spread, _ = grad_err(rp2, rp)
+    per_step = {d: rk["forward_launches"][d] + rk["backward_launches"][d]
+                for d in rk["forward_launches"]}
+    sorted_loss = query_sat_module._head_weighted_loss
+    query_sat_module._head_weighted_loss = head_order_loss
+    try:
+        up = loss_and_grads(None, cfg_train.train_rounds)
+        err32_unsorted, _ = grad_err(
+            loss_and_grads(grad_plans, cfg_train.train_rounds), up)
+        spread_unsorted, _ = grad_err(
+            loss_and_grads(None, cfg_train.train_rounds), up)
+    finally:
+        query_sat_module._head_weighted_loss = sorted_loss
+    del up
+    emit(phase="train_grads_flat", rounds=cfg_train.train_rounds,
+         tensors=len(leaves), loss_kernel=rk["loss"],
+         loss_plain=rp["loss"], loss_plain_again=rp2["loss"],
+         steps=rk["steps"], grad_err_4_rounds=err4,
+         plain_against_itself_4_rounds=plain_spread4,
+         loss_4_rounds=[k4["loss"], p4["loss"]],
+         largest_gradient_4_rounds=top4, grad_err_32_rounds=err32,
+         plain_against_itself_32_rounds=plain_spread,
+         largest_gradient_32_rounds=top32, tolerance=TRAIN_GRAD_TOL,
+         grad_err_32_rounds_heads_unsorted=err32_unsorted,
+         plain_against_itself_32_rounds_heads_unsorted=spread_unsorted,
+         forward_launches=rk["forward_launches"],
+         backward_launches=rk["backward_launches"],
+         launches_per_step=per_step,
+         predicted_per_step=LAUNCHES_PER_TRAIN_STEP,
+         plain_path_launches=rp["forward_launches"],
+         forward_s={"kernel": rk["forward_s"], "plain": rp2["forward_s"]},
+         backward_s={"kernel": rk["backward_s"],
+                     "plain": rp2["backward_s"]})
+    for a, b in ((k4, p4), (rk, rp)):
+        if abs(a["loss"] - b["loss"]) > TRAIN_LOSS_RTOL * abs(b["loss"]) \
+                or a["steps"] != b["steps"]:
+            raise RuntimeError("training loss differs between the "
+                               "kernel and the plain path")
+    for rounds, err in ((4, err4), (32, err32)):
+        if err > TRAIN_GRAD_TOL:
+            raise RuntimeError(
+                f"{rounds}-round training gradients differ: {err}")
+    if any(rp["forward_launches"].values()) or \
+            any(rp["backward_launches"].values()):
+        raise RuntimeError("the plain path launched the kernel")
+    for d, n in per_step.items():
+        if n != LAUNCHES_PER_TRAIN_STEP or \
+                rk["forward_launches"][d] <= 0 or \
+                rk["backward_launches"][d] <= 0:
+            raise RuntimeError(f"train step launches ({d}): {n}")
+    launches_of["per_step"] = per_step
+    del k4, p4, rk, rp, rp2
+
+    # -- optimizer steps from a seeded init --------------------------
+    def fresh_state(cfg_model):
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        p0 = query_sat_init(g, cfg_model)
+        opt = adabelief(learning_rate=cosine_decay_schedule(
+            1e-3, 167_000, 0.5), eps=1e-8, clip_gradients=True)
+        g2 = torch.Generator(device=dev)
+        g2.manual_seed(1)
+        return opt, TrainState(params=p0, opt_state=opt.init(p0),
+                               step=0, generator=g2)
+
+    def precision_of(block_bf16):
+        # a block-bf16 run takes the training script's defaults: bf16
+        # operands in the incidence products as well
+        return dense_ops.incidence_precision(
+            "default" if block_bf16 else "highest")
+
+    def run_training(name, layout, block_bf16):
+        cfg_model = QuerySATConfig(block_bf16=block_bf16)
+        opt, state = fresh_state(cfg_model)
+        if layout == "dense":
+            step = make_train_step_for(query_sat_dense_apply, cfg_model,
+                                       opt, dev)
+            stream = PackedBatches(dense_train).repeat_shuffled()
+        else:
+            planned = make_planned_train_step(cfg_model, opt, dev)
+            step = lambda s, b: planned(s, b, plans_of[id(b)])  # noqa: E731
+            stream = PackedBatches(
+                [b for b, _ in flat_train]).repeat_shuffled()
+        state, _ = step(state, next(stream))      # warm-up
+        _, state = fresh_state(cfg_model)
+        segsum.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(TRAIN_STEPS):
+            state, out = step(state, next(stream))
+            losses.append(out["loss"])
+        losses = torch.stack(losses).cpu().numpy()
+        sync()
+        wall = time.perf_counter() - t0
+        fifth = TRAIN_STEPS // 5
+        first, last = losses[:fifth].mean(), losses[-fifth:].mean()
+        launched = dict(segsum.LAUNCHES)
+        emit(phase=name, layout=layout, block_bf16=block_bf16,
+             incidence_precision=dense_ops.INCIDENCE_PRECISION,
+             steps=TRAIN_STEPS, first_fifth_loss=float(first),
+             last_fifth_loss=float(last), required=LOSS_FALL_FACTOR,
+             steps_per_s=TRAIN_STEPS / wall, wall_s=wall,
+             peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+             launches=launched,
+             loss_every_10=[float(x) for x in losses[::10]])
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"{name}: non-finite loss")
+        if not last < LOSS_FALL_FACTOR * first:
+            raise RuntimeError(f"{name}: the loss did not fall "
+                               f"({first} -> {last})")
+        return launched
+
+    for name, layout, bf16 in (("train_dense", "dense", False),
+                               ("train_dense_bf16", "dense", True)):
+        with precision_of(bf16):
+            launched = run_training(name, layout, bf16)
+        if any(launched.values()):
+            raise RuntimeError(f"{name} launched the segsum kernel")
+    launches_of["train_flat_kernel"] = run_training(
+        "train_flat_kernel", "flat", False)
+    for d, n in launches_of["train_flat_kernel"].items():
+        if n != TRAIN_STEPS * LAUNCHES_PER_TRAIN_STEP:
+            raise RuntimeError(
+                f"train_flat_kernel: {n} launches of {d}, reckoned "
+                f"{TRAIN_STEPS * LAUNCHES_PER_TRAIN_STEP}")
+
+    # the self-conditioning step on a flat batch makes two passes, each
+    # through the kernel forward and backward
+    cfg_model = QuerySATConfig()
+    opt, state = fresh_state(cfg_model)
+    selfsup = make_selfsupervised_train_step(cfg_model, opt, device=dev)
+    segsum.reset_launch_counts()
+    state, out = selfsup(state, *flat_train[0])
+    sync()
+    launched = dict(segsum.LAUNCHES)
+    emit(phase="train_selfsup_flat", steps=1, loss=out["loss"].item(),
+         loss1=out["loss1"].item(), loss2=out["loss2"].item(),
+         launches=launched, predicted=2 * LAUNCHES_PER_TRAIN_STEP)
+    if not np.isfinite(out["loss"].item()) or launched != dict.fromkeys(
+            launched, 2 * LAUNCHES_PER_TRAIN_STEP):
+        raise RuntimeError(f"train_selfsup_flat: launches {launched}")
+
+    # -- the training script, in-process, both layouts -------------------------
+    # the runs' files go under the checkout and are removed afterwards
+    train_dir = ROOT / "runs" / "chip_smoke"
+    shutil.rmtree(train_dir, ignore_errors=True)
+    common_argv = ["--train_size", str(TRAIN_SIZE), "--test_size", "2000",
+                   "--data_dir", str(data_dir), "--train_dir",
+                   str(train_dir), "--device", str(dev), "--ckpt_every",
+                   "50"]
+    script_launches = {"lit_to_clause": 0, "clause_to_lit": 0}
+    for layout, n_steps in (("dense", 100), ("flat", 50)):
+        argv_l = common_argv + [
+            "--dense", "true" if layout == "dense" else "false",
+            "--label", f"smoke_{layout}", "--eval_every", str(n_steps)]
+        segsum.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        final = diffusion_training.main(
+            argv_l + ["--train_steps", str(n_steps)])
+        first_s = time.perf_counter() - t0
+        run_dir = Path(final["run_dir"])
+        ckpts = [f"ckpt_{n}.npz" for n in sorted(
+            int(p.stem.split("_")[1])
+            for p in (run_dir / "ckpt").iterdir())]
+        # a second run restores the newest checkpoint and trains on
+        final2 = diffusion_training.main(
+            argv_l + ["--train_steps", str(n_steps + 10), "--restore",
+                      str(run_dir / "ckpt")])
+        launched = dict(segsum.LAUNCHES)
+        log = [json.loads(ln) for ln in (
+            Path(final2["run_dir"]) / "train_log.jsonl"
+        ).read_text().splitlines()]
+        resumed = [r["step"] for r in log if "steps_per_sec" in r]
+        # the exported params, read back by the solving eval
+        segsum.reset_launch_counts()
+        res = solve_eval.main([
+            "--model_ckpt", str(run_dir / "params.npz"), "--train_size",
+            str(TRAIN_SIZE), "--test_size", "2000", "--max_batches", "2",
+            "--data_dir", str(data_dir), "--device", str(dev)])
+        emit(phase="train_script", layout=layout, steps=n_steps,
+             train_instances=TRAIN_SIZE, cut_from=100000,
+             note="data quantity is cut, not width or depth",
+             wall_s=first_s, eval_total_accuracy=final["total_accuracy"],
+             diag_loss=final["diag_loss"], checkpoints=ckpts,
+             resumed_to=resumed, launches=launched,
+             npz_total_accuracy=res["total_accuracy"],
+             files=sorted(p.name for p in run_dir.iterdir()))
+        if ckpts != [f"ckpt_{n_steps - 50 * i}.npz" for i in
+                     reversed(range(n_steps // 50))][-3:]:
+            raise RuntimeError(f"train_script: checkpoints {ckpts}")
+        if resumed != [n_steps + 10]:
+            raise RuntimeError(f"train_script: resumed to {resumed}")
+        if not np.isfinite(final["diag_loss"]) or \
+                not 0.0 <= res["total_accuracy"] <= 1.0:
+            raise RuntimeError("train_script: bad eval")
+        for name in ("config.json", "train_log.jsonl", "params.npz"):
+            if not (run_dir / name).exists():
+                raise RuntimeError(f"train_script: {name} missing")
+        if layout == "flat":
+            script_launches = launched
+            if min(launched.values()) < n_steps * LAUNCHES_PER_TRAIN_STEP:
+                raise RuntimeError(
+                    f"train_script (flat): launches {launched}")
+    launches_of["train_script"] = script_launches
+    shutil.rmtree(train_dir)
+
+    # -- where a train step's time goes -------------------------------
+    def profile_train_step(name, layout, bf16):
+        cfg_model = QuerySATConfig(block_bf16=bf16)
+        opt, state = fresh_state(cfg_model)
+        if layout == "dense":
+            batch, plans = dense_train[0], None
+            step = make_train_step_for(query_sat_dense_apply, cfg_model,
+                                       opt, dev)
+            run = functools.partial(step, batch=batch)
+            apply = functools.partial(query_sat_dense_apply,
+                                      batch=batch)
+        else:
+            batch, plans = flat_train[0]
+            planned = make_planned_train_step(cfg_model, opt, dev)
+            run = functools.partial(planned, batch=batch, plan=plans)
+            apply = functools.partial(query_sat_apply, batch=batch,
+                                      plans=plans)
+        walls = []
+        for _ in range(4):
+            sync()
+            t0 = time.perf_counter()
+            state, _ = run(state)
+            sync()
+            walls.append(time.perf_counter() - t0)
+        wall = min(walls[1:])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, _ = run(state)
+            sync()
+        step_k = cuda_kernels(prof)
+        # the forward alone, to split the segsum time of the step
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_f:
+            g = torch.Generator(device=dev)
+            g.manual_seed(3)
+            tree_f = {m: {k: [p.detach().requires_grad_(True)
+                              for p in v] for k, v in mlp.items()}
+                      for m, mlp in state.params.items()}
+            out = apply(params=tree_f, cfg=cfg_model, generator=g,
+                        training=True, device=dev)
+            sync()
+        del out
+        fwd_k = cuda_kernels(prof_f)
+        busy = sum(dev_us(e) for e in step_k)
+        top = sorted(step_k, key=dev_us, reverse=True)[:8]
+        emit(phase="profile_train_step", layout=name,
+             incidence_precision=dense_ops.INCIDENCE_PRECISION,
+             wall_ms=wall * 1e3, walls_ms=[w * 1e3 for w in walls],
+             device_busy_ms=busy / 1e3,
+             device_busy_share=busy / 1e3 / (wall * 1e3),
+             kernels_per_step=sum(e.count for e in step_k),
+             forward_kernels=sum(e.count for e in fwd_k),
+             forward_busy_ms=sum(dev_us(e) for e in fwd_k) / 1e3,
+             segsum_busy_ms=segsum_us(step_k) / 1e3,
+             segsum_forward_ms=segsum_us(fwd_k) / 1e3,
+             segsum_backward_ms=(segsum_us(step_k) -
+                                 segsum_us(fwd_k)) / 1e3,
+             segsum_share_of_busy=segsum_us(step_k) / max(busy, 1),
+             top=[(e.key[:60], dev_us(e) / 1e3, e.count) for e in top])
+
+    for name, layout, bf16 in (("dense_f32", "dense", False),
+                               ("dense_block_bf16", "dense", True),
+                               ("flat_kernel", "flat", False)):
+        with precision_of(bf16):
+            profile_train_step(name, layout, bf16)
+    train_launches = launches_of
+
     # one row per kernel: times at the sampler's shapes, launches of the
-    # sampler run; the solving eval's launches and its times at the eval
-    # batch's shapes ride along
+    # sampler run; the solving eval's and the training paths' launches and
+    # the times at the eval batch's and the 20k training batch's shapes ride
+    # along (a backward launch is the same kernel at the same shapes)
     kernels = [dict(name=f"gather_segsum:{d}", route="cuda",
                     source=KERNEL_SOURCE, replaces=REPLACES,
                     launches=launches[d], max_abs_err=r["max_abs_err"],
@@ -477,7 +955,11 @@ def main() -> int:
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"],
                     launches_solve_eval=eval_launches[d],
-                    solve_eval_shapes=kernel_rows["eval_split_batch_0"][d])
+                    solve_eval_shapes=kernel_rows["eval_split_batch_0"][d],
+                    launches_train_flat=train_launches["train_flat_kernel"][d],
+                    launches_train_script=train_launches["train_script"][d],
+                    launches_per_train_step=train_launches["per_step"][d],
+                    train_shapes=kernel_rows["threshold3sat_20k"][d])
                for d, r in kernel_rows["primes_3599_x15"].items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,11 @@ only. Entry points run on the card (``device="cuda"``) unless the caller
 asks for the CPU, where every hand-written kernel's wrapper runs the
 kernel's plain PyTorch version instead.
 
-This slice ports the flat reverse-diffusion sampling path: CNF container,
-padded batch, QuerySAT inference, the diffusion schedule and the flat
-sampler chain, with the literal-clause SpMM pair on a CUDA kernel
-(``csrc/segsum.cu``).
+Ported so far: the reverse-diffusion sampler (flat and dense chains), the
+solving eval, and training (AdaBelief, the train steps of both layouts,
+checkpoints and the ``diffusion_training`` script) of QuerySAT, with the
+flat layout's literal-clause SpMM pair, forward and backward, on a CUDA
+kernel (``csrc/segsum.cu``).
 """
 
 __version__ = "0.1.0"

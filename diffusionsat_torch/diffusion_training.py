@@ -1,0 +1,326 @@
+"""DiffusionSAT training entry point.
+
+    python -m diffusionsat_torch.diffusion_training --train_steps 10000
+
+Counterpart of the TPU package's root `diffusion_training.py`, with its
+flags and defaults: QuerySAT on diffusion-labeled hard 3-SAT, AdaBelief
+with cosine decay, periodic eval, diagnostics and checkpoints. It runs on
+the card unless `--device cpu` is given.
+
+Two execution layouts:
+
+- dense per-graph blocks (`--dense true`, the default): every batch that
+  fits the block tables is re-blocked (`densify_batches_quantized`) and
+  trains through `query_sat_dense_apply`, in block-level bf16 unless
+  `DSAT_BLOCK_BF16=0`. Batches over the cutoff (`DSAT_DENSE_MAX_VARS`,
+  128 variables) stay flat and train through the planned step beside the
+  dense ones;
+- flat (`--dense false`): every batch trains through `query_sat_apply`
+  with its `BatchPlans`, so the literal-clause aggregations and their
+  backwards run on the segsum kernel.
+
+The run directory gets `config.json`, `train_log.jsonl`, `tb/`, `ckpt/`
+and, at the end, `params.npz`, the portable params file that the samplers
+and evals of both packages load.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+from diffusionsat_torch.config import RunConfig, parse_config
+from diffusionsat_torch.data.datasets import PackedBatches, SatDataset
+from diffusionsat_torch.data.generators import (
+    DiffusionSatInstances,
+    SAT3Instances,
+)
+from diffusionsat_torch.device import resolve_device
+from diffusionsat_torch.graph.batch import (
+    BucketSpec,
+    SatBatch,
+    attach_label_isolation,
+)
+from diffusionsat_torch.graph.dense_batch import (
+    DenseSatBatch,
+    densify_batches_quantized,
+)
+from diffusionsat_torch.models.query_sat import (
+    QuerySATConfig,
+    query_sat_apply,
+    query_sat_init,
+)
+from diffusionsat_torch.models.query_sat_dense import query_sat_dense_apply
+from diffusionsat_torch.ops import dense_ops
+from diffusionsat_torch.train.adabelief import (
+    adabelief,
+    cosine_decay_schedule,
+)
+from diffusionsat_torch.train.checkpoint import (
+    CheckpointManager,
+    export_params,
+    load_params,
+    params_from_numpy,
+)
+from diffusionsat_torch.train.loop import (
+    TrainState,
+    evaluate_metrics,
+    make_diagnostics_step,
+    make_planned_train_step,
+    make_selfsupervised_train_step,
+    make_train_step_for,
+    plan_batches,
+    train,
+)
+from diffusionsat_torch.train.metrics import SATAccuracy, StepStatistics
+from diffusionsat_torch.train.tb import TBWriter
+
+
+def _check_ported(cfg: RunConfig) -> None:
+    if not cfg.use_hard_3sat:
+        raise NotImplementedError(
+            "KSatInstances (--use_hard_3sat false) waits for the ROADMAP "
+            "Queue 1 item 12 'Host code'")
+    if cfg.label_logit_table:
+        raise NotImplementedError(
+            "--label_logit_table waits for the ROADMAP Queue 1 item 6 "
+            "'Uniformity tooling'")
+    if cfg.n_devices > 1:
+        raise NotImplementedError(
+            "--n_devices > 1 waits for the ROADMAP Queue 1 item 11 "
+            "'Multi-device'")
+    if cfg.mega_steps > 1:
+        raise NotImplementedError(
+            "--mega_steps (many steps per dispatch, e.g. a CUDA graph) waits "
+            "for the ROADMAP Queue 1 item 5")
+    backend = os.environ.get("DSAT_FLAT_BACKEND", "segsum")
+    if backend not in ("segsum", "pallas"):
+        raise NotImplementedError(
+            f"DSAT_FLAT_BACKEND={backend}: the only flat backend is the "
+            "segsum kernel; the tiled layout waits for the ROADMAP Queue 1 "
+            "item 7 'Tiled flat layout and hybrid dispatch'")
+
+
+def build_dataset(cfg: RunConfig) -> SatDataset:
+    """The training runs' dataset, under the cache name the TPU package's
+    training script gives it, so either package reads the other's cache."""
+    base = SAT3Instances(min_vars=cfg.min_vars, max_vars=cfg.max_vars,
+                         train_size=cfg.train_size, test_size=cfg.test_size,
+                         seed=cfg.seed)
+    instances = DiffusionSatInstances(base, use_unigen=cfg.use_unigen,
+                                      seed=cfg.seed,
+                                      n_label_samples=cfg.label_samples)
+    bucket = BucketSpec.for_node_budget(cfg.max_nodes_per_batch)
+    name = f"diffusion_3sat_{cfg.min_vars}_{cfg.max_vars}_{cfg.train_size}"
+    if cfg.label_samples > 1:  # multi-label cache is a different schema
+        name += f"_k{cfg.label_samples}"
+    return SatDataset(instances, bucket, cache_dir=cfg.data_dir, name=name,
+                      force_data_gen=cfg.force_data_gen, seed=cfg.seed,
+                      gen_workers=cfg.gen_workers or None)
+
+
+def _split_dense(batches: list[SatBatch]
+                 ) -> tuple[list[DenseSatBatch], list[SatBatch]]:
+    """Hybrid dispatch: densify the batches that fit the block tables and
+    lie below the size cutoff; the rest stay flat. Raises ValueError when
+    no batch fits."""
+    dense_max_vars = int(os.environ.get("DSAT_DENSE_MAX_VARS", "128"))
+    dense_batches, flat_rest = [], []
+    for b in batches:
+        maxv = int(np.max(b.n_vars_per_graph.numpy(), initial=1))
+        if dense_max_vars and maxv > dense_max_vars:
+            flat_rest.append(b)
+            continue
+        try:
+            dense_batches.extend(densify_batches_quantized([b]))
+        except ValueError:
+            flat_rest.append(b)
+    if not dense_batches:
+        raise ValueError("no batch fits the dense block tables")
+    return dense_batches, flat_rest
+
+
+def main(argv=None):
+    cfg = parse_config(argv)
+    _check_ported(cfg)
+    dev = resolve_device(cfg.device)
+    if cfg.eager:
+        torch.autograd.set_detect_anomaly(True)
+    if cfg.incidence_precision not in dense_ops.PRECISIONS:
+        raise SystemExit(f"--incidence_precision must be one of "
+                         f"{dense_ops.PRECISIONS}")
+    # the dense incidence products take the run's precision for the length
+    # of the run only
+    with dense_ops.incidence_precision(cfg.incidence_precision):
+        return _run(cfg, dev)
+
+
+def _run(cfg: RunConfig, dev: torch.device) -> dict:
+    model_cfg = QuerySATConfig(
+        feature_maps=cfg.feature_maps, query_maps=cfg.query_maps,
+        train_rounds=cfg.train_rounds, test_rounds=cfg.test_rounds,
+        logit_maps=cfg.logit_maps, noise_skew=cfg.noise_skew,
+        label_isolation_alpha=cfg.label_isolation_alpha,
+        # block-level bf16 on the dense path, on unless DSAT_BLOCK_BF16=0;
+        # the flat model runs f32 regardless
+        block_bf16=os.environ.get("DSAT_BLOCK_BF16", "1") == "1")
+
+    lr = cosine_decay_schedule(cfg.initial_learning_rate, cfg.train_steps,
+                               cfg.cosine_alpha) if cfg.use_cosine_decay \
+        else cfg.learning_rate
+    optimizer = adabelief(learning_rate=lr, eps=1e-8, clip_gradients=True)
+
+    # materialize the dataset before touching the card: data generation is
+    # pure host work
+    dataset = build_dataset(cfg)
+    train_data = dataset.train_data()
+    test_data = dataset.test_data()
+    print(f"train batches: {len(train_data)}, test batches: {len(test_data)}",
+          flush=True)
+    if cfg.train_batch_limit > 0:
+        train_data.batches = train_data.batches[:cfg.train_batch_limit]
+        print(f"train batches limited to first {len(train_data)}",
+              flush=True)
+    if cfg.label_isolation_alpha != 0.0:
+        if cfg.label_samples <= 1:
+            raise SystemExit("--label_isolation_alpha requires a "
+                             "multi-label bank (--label_samples > 1)")
+        train_data.batches = [attach_label_isolation(b)
+                              for b in train_data.batches]
+        print(f"label isolation attached to {len(train_data)} batches",
+              flush=True)
+
+    init_gen = torch.Generator(device=dev)
+    init_gen.manual_seed(cfg.seed)
+    params = query_sat_init(init_gen, model_cfg)
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(cfg.seed + 1)
+    state = TrainState(params=params, opt_state=optimizer.init(params),
+                       step=0, generator=generator)
+
+    run_dir = cfg.run_dir()
+    run_dir.mkdir(parents=True, exist_ok=True)
+    (run_dir / "config.json").write_text(
+        json.dumps(dataclasses.asdict(cfg), indent=1, default=str))
+    ckpt_dir = cfg.restore if cfg.restore else run_dir / "ckpt"
+    mgr = CheckpointManager(ckpt_dir, max_to_keep=cfg.ckpt_count)
+    restored = mgr.restore(state)
+    if restored is not None:
+        state = restored
+        print(f"Restored from step {state.step}")
+    elif cfg.init_npz:
+        warm, meta = load_params(cfg.init_npz)
+        state = state.replace(params=params_from_numpy(warm, dev))
+        print(f"Warm-started params from {cfg.init_npz} (meta: {meta})",
+              flush=True)
+
+    # Execution layout: dense per-graph blocks when the graphs fit the
+    # block tables, with over-cutoff batches on the planned flat step;
+    # else every batch on the planned flat step. Plans are host-built
+    # before a batch moves to the device, and every batch is placed on the
+    # device once.
+    train_step = None
+    diag_apply = query_sat_apply
+    if cfg.dense:
+        try:
+            dense_batches, flat_rest = _split_dense(train_data.batches)
+        except ValueError as e:
+            print(f"dense layout unavailable ({e}); flat path", flush=True)
+            cfg = dataclasses.replace(cfg, dense=False)
+    if cfg.dense:
+        dense_batches = [b.to(dev) for b in dense_batches]
+        planned_rest = plan_batches(flat_rest, dev)
+        print("train batches device-cached", flush=True)
+        diag_apply = query_sat_dense_apply
+        if cfg.self_supervised:
+            train_step = make_selfsupervised_train_step(
+                model_cfg, optimizer, apply_fn=query_sat_dense_apply,
+                device=dev)
+            if flat_rest:
+                print(f"WARNING: self-supervised step is dense-only; "
+                      f"{len(flat_rest)} over-cutoff batches excluded",
+                      flush=True)
+            stream_batches = dense_batches
+        else:
+            dense_step = make_train_step_for(query_sat_dense_apply,
+                                             model_cfg, optimizer, dev)
+            planned = make_planned_train_step(model_cfg, optimizer, dev)
+            plans_of = {id(b): p for b, p in planned_rest}
+
+            def train_step(state, batch):
+                if isinstance(batch, DenseSatBatch):
+                    return dense_step(state, batch)
+                return planned(state, batch, plans_of[id(batch)])
+
+            stream_batches = dense_batches + [b for b, _ in planned_rest]
+            if flat_rest:
+                print(f"hybrid dispatch: {len(dense_batches)} dense + "
+                      f"{len(flat_rest)} flat batches", flush=True)
+        shapes = sorted({(d.G, d.Vg, d.Cg) for d in dense_batches})
+        print(f"dense layout shapes (G, Vg, Cg): {shapes}", flush=True)
+    else:
+        planned_train = plan_batches(train_data.batches, dev)
+        stream_batches = [b for b, _ in planned_train]
+        plans_of = {id(b): p for b, p in planned_train}
+        planned = make_selfsupervised_train_step(
+            model_cfg, optimizer, device=dev) if cfg.self_supervised \
+            else make_planned_train_step(model_cfg, optimizer, dev)
+
+        def train_step(state, batch):
+            return planned(state, batch, plans_of[id(batch)])
+    train_stream = PackedBatches(stream_batches, seed=cfg.seed)
+    data_stream = train_stream.repeat_shuffled()
+
+    # periodic in-model diagnostics on a fixed train batch
+    diag_fn = make_diagnostics_step(model_cfg, diag_apply, device=dev)
+    diag_batch = train_stream.batches[0]
+    diag_plans = None if isinstance(diag_batch, DenseSatBatch) \
+        else plans_of[id(diag_batch)]
+
+    # the eval batches, flat with their kernel plans, on the device once
+    eval_batches = plan_batches(list(test_data)[:8], dev)
+
+    def seeded(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    def eval_fn(st):
+        vals = evaluate_metrics(
+            st.params, model_cfg, eval_batches,
+            [SATAccuracy(), StepStatistics()], seeded(99), max_batches=8,
+            device=dev)
+        vals.update(diag_fn(st.params, diag_batch, seeded(123),
+                            plans=diag_plans))
+        return vals
+
+    tb = TBWriter(run_dir / "tb")
+    tb.hparams(dataclasses.asdict(cfg))
+
+    remaining = max(cfg.train_steps - state.step, 0)
+    state = train(
+        state, train_step, data_stream, steps=remaining,
+        target_step=cfg.train_steps,
+        eval_fn=eval_fn, eval_every=max(1, cfg.eval_every),
+        checkpoint_fn=mgr.save, ckpt_every=max(1, cfg.ckpt_every),
+        log_file=run_dir / "train_log.jsonl", tb_writer=tb)
+    mgr.save(state)
+    final = eval_fn(state)
+    tb.close()
+    export_params(state.params, run_dir / "params.npz", meta={
+        "model": "query_sat", "config": {
+            k: v for k, v in dataclasses.asdict(model_cfg).items()
+            if isinstance(v, (int, float, str, bool))},
+        "step": state.step})
+    final["run_dir"] = str(run_dir)
+    print(f"[final] {final}")
+    return final
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

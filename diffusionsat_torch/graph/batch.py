@@ -234,3 +234,33 @@ def build_batch(formulas: Sequence[tuple[int, Sequence[Sequence[int]]]],
         n_graphs=torch.tensor(n_graphs, dtype=torch.int32),
         solutions_k=None if sol_k is None else t(sol_k),
     )
+
+
+def attach_label_isolation(batch: SatBatch) -> SatBatch:
+    """Per-bank-row isolation scores for weighted label selection.
+
+    For each graph, every `solutions_k` row gets its mean Hamming distance
+    (fraction of differing bits over the graph's vars) to the other K-1
+    rows, z-scored within the graph. The bank rows are uniform solution
+    draws, so the distance to the bank estimates the distance to a random
+    solution. Host-side numpy; a batch without a bank comes back as it is.
+    """
+    if batch.solutions_k is None:
+        return batch
+    sk = batch.solutions_k.detach().cpu().numpy()      # [K, V]
+    K = sk.shape[0]
+    var_graph = batch.var_graph.detach().cpu().numpy()
+    G = batch.graph_mask.shape[0]
+    iso = np.zeros((K, G), np.float32)
+    if K > 1:
+        for g in range(int(batch.n_graphs)):
+            rows = sk[:, var_graph == g]                # [K, n_vars_g]
+            if rows.shape[1] == 0:
+                continue
+            d = (rows[:, None, :] != rows[None, :, :]).mean(-1)
+            dbar = d.sum(1) / (K - 1)
+            std = dbar.std()
+            if std > 1e-9:
+                iso[:, g] = (dbar - dbar.mean()) / std
+    return dataclasses.replace(
+        batch, label_isolation_k=torch.from_numpy(iso).to(batch.device))

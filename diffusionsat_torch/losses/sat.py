@@ -1,7 +1,7 @@
 """Differentiable unsupervised CNF satisfiability losses.
 
 Counterpart of the TPU package's `losses/sat.py` for the functions the
-QuerySAT inference path needs. Padded clauses and edges are masked so they
+QuerySAT paths need. Padded clauses and edges are masked so they
 contribute exactly 0. Losses take `logits` of shape [V] or [V, K] (K
 parallel logit heads) and return per-clause [C, K] or scalars.
 """

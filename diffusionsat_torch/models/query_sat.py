@@ -1,8 +1,10 @@
-"""QuerySAT, the DiffusionSAT core model, in inference mode.
+"""QuerySAT, the DiffusionSAT core model, for inference and training.
 
 Counterpart of the TPU package's `models/query_sat.py`: the same explicit
 params tree and the same recurrent round, run as a Python loop of eager
-PyTorch ops.
+PyTorch ops. With `training=True` the loop records the autograd graph (the
+caller differentiates the returned loss wrt the params), runs
+`cfg.train_rounds` rounds and exits early only by masking.
 
 - The query gradient of the clause loss is computed in closed form
   (`losses.sat.softplus_loss_and_grad`).
@@ -14,7 +16,12 @@ PyTorch ops.
   noise) come from an explicit `torch.Generator`, or are injected
   (`noise_scale=`, `labels=`, `noisy_num=`, `round_noise=`).
 - With `plans` (ops/segsum.BatchPlans) the four literal-clause
-  aggregations of a round run on the hand-written CUDA kernel.
+  aggregations of a round run on the hand-written CUDA kernel, and so do
+  their backwards (each direction's backward is the other direction).
+- `cfg.remat` trades memory for recomputation in training: "full"
+  checkpoints each round, "dots" keeps the matrix products' outputs and
+  recomputes the rest. The per-round noise is drawn outside the round body
+  and passed in, so a recomputed round sees the same noise.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils import _pytree as pytree
+from torch.utils import checkpoint as torch_checkpoint
 
 from diffusionsat_torch.device import resolve_device
 from diffusionsat_torch.diffusion.schedule import (
@@ -62,8 +71,9 @@ from diffusionsat_torch.ops.segsum import (
 class QuerySATConfig:
     """Architecture knobs, with the TPU package's field names and defaults.
 
-    Only f32 inference is ported: `dtype`, `compute_dtype`, `block_bf16`
-    and `remat` must keep their defaults.
+    `compute_dtype` (a torch dtype) casts the MLP products' operands per
+    call; `block_bf16` is read by the dense model only; `remat` is "none",
+    "full" or "dots". States are float32 (`dtype` keeps its default).
     """
     feature_maps: int = 128
     query_maps: int = 128
@@ -127,23 +137,36 @@ class QuerySATConfig:
         return cls(**kw)
 
 
-def _check_ported(cfg: QuerySATConfig, training: bool, axis_name, halo):
-    if training:
-        raise NotImplementedError(
-            "training waits for the ROADMAP item 'Train step and optimizer'")
+def _check_ported(cfg: QuerySATConfig, axis_name, halo):
     if axis_name is not None or halo is not None:
         raise NotImplementedError(
             "sharded execution waits for the ROADMAP item 'Multi-device'")
-    if (cfg.block_bf16 or cfg.compute_dtype is not None
-            or cfg.dtype != torch.float32):
-        raise NotImplementedError(
-            "reduced precision (block_bf16, compute_dtype) is a training "
-            "default; it waits for the ROADMAP item 'Train step and "
-            "optimizer'")
-    if cfg.remat != "none":
-        raise NotImplementedError(
-            "remat is a training mode; it waits for the ROADMAP item "
-            "'Train step and optimizer'")
+    if cfg.dtype != torch.float32:
+        raise ValueError("states are float32; the reduced-precision modes "
+                         "are block_bf16 and compute_dtype")
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be none, full or dots, got "
+                         f"{cfg.remat!r}")
+
+
+# the outputs that remat="dots" keeps: every matrix product of the round
+_DOT_OPS = ("mm", "bmm", "addmm", "baddbmm")
+
+
+def remat_body(cfg: QuerySATConfig, training: bool, body):
+    """`body` wrapped as `cfg.remat` asks (training only)."""
+    if not training or cfg.remat == "none":
+        return body
+    kw = {}
+    if cfg.remat == "dots":
+        ops = [getattr(torch.ops.aten, n).default for n in _DOT_OPS]
+        kw["context_fn"] = lambda: \
+            torch_checkpoint.create_selective_checkpoint_contexts(ops)
+
+    def wrapped(*args):
+        return torch_checkpoint.checkpoint(body, *args, use_reentrant=False,
+                                           **kw)
+    return wrapped
 
 
 def _round_stats(logit_loss, query, variables_grad, new_variables,
@@ -174,11 +197,7 @@ def query_sat_init(generator: torch.Generator, cfg: QuerySATConfig) -> dict:
 
 def params_to(params: Any, device: torch.device) -> Any:
     """The params tree with every tensor on `device`."""
-    if isinstance(params, dict):
-        return {k: params_to(v, device) for k, v in params.items()}
-    if isinstance(params, (list, tuple)):
-        return [params_to(v, device) for v in params]
-    return params.to(device)
+    return pytree.tree_map(lambda t: t.to(device), params)
 
 
 def _head_weighted_loss(per_graph_loss: torch.Tensor, logit_maps: int
@@ -208,7 +227,6 @@ def _prepare_noisy_labels(cfg: QuerySATConfig, batch: SatBatch,
     return torch.cat([noisy, den], dim=-1)
 
 
-@torch.no_grad()
 def query_sat_apply(params: dict, cfg: QuerySATConfig, batch: SatBatch,
                     generator: torch.Generator | None = None,
                     training: bool = False,
@@ -233,8 +251,22 @@ def query_sat_apply(params: dict, cfg: QuerySATConfig, batch: SatBatch,
     moved to `device` (a no-op when they are there already). With
     `cfg.collect_round_stats` the fixed-count loop also returns per-round
     summaries as `aux["round_stats"]` (the early-exit loop does not).
+
+    `training=True` records the autograd graph, whatever the caller's grad
+    mode; inference records none. `rounds` defaults to `cfg.train_rounds`
+    when training and to `cfg.test_rounds` otherwise.
     """
-    _check_ported(cfg, training, axis_name, halo)
+    _check_ported(cfg, axis_name, halo)
+    with torch.set_grad_enabled(training):
+        return _query_sat_apply(
+            params, cfg, batch, generator, training, labels, noise_scale,
+            noisy_num, denoised_num, rounds, early_exit, plans, round_noise,
+            device)
+
+
+def _query_sat_apply(params, cfg, batch, generator, training, labels,
+                     noise_scale, noisy_num, denoised_num, rounds, early_exit,
+                     plans, round_noise, device):
     dev = resolve_device(device)
     batch = batch.to(dev)
     params = params_to(params, dev)
@@ -244,7 +276,8 @@ def query_sat_apply(params: dict, cfg: QuerySATConfig, batch: SatBatch,
     V = batch.V
     K, Q = cfg.logit_maps, cfg.query_maps
     if rounds is None:
-        rounds = cfg.test_rounds
+        rounds = cfg.train_rounds if training else cfg.test_rounds
+    cdt = cfg.compute_dtype
 
     if noise_scale is None:
         noise_scale = torch.rand((), generator=generator, device=dev)
@@ -289,21 +322,22 @@ def query_sat_apply(params: dict, cfg: QuerySATConfig, batch: SatBatch,
             return plan_clause_to_lit(x, plans)
         return clause_to_lit(batch, x)
 
-    def round_body(carry, step_idx):
+    def draw_noise(step_idx):
+        if cfg.debug_zero_noise:
+            return torch.zeros((V, 4), device=dev)
+        if round_noise is not None:
+            return round_noise[step_idx]
+        return torch.randn((V, 4), generator=generator, device=dev)
+
+    def round_body(carry, noise4):
         (variables, clause_state, last_logits, best_map_vars, loss_sum,
          loss_count, steps, done) = carry
-
-        if cfg.debug_zero_noise:
-            noise4 = torch.zeros((V, 4), device=dev)
-        elif round_noise is not None:
-            noise4 = round_noise[step_idx]
-        else:
-            noise4 = torch.randn((V, 4), generator=generator, device=dev)
         v1 = torch.cat([variables, noise4, noisy_labels], dim=-1)
 
-        # query and the closed-form gradient of the clause loss wrt it
+        # query and the closed-form gradient of the clause loss wrt it:
+        # first-order ops, which the outer backward differentiates through
         query = mlp_apply(params["variables_query"],
-                          mcfgs["variables_query"][0], v1)
+                          mcfgs["variables_query"][0], v1, compute_dtype=cdt)
         clauses_loss, grads = softplus_loss_and_grad(query, batch,
                                                      plans=plans)
         variables_grad = grads * var_degree_weight
@@ -311,7 +345,8 @@ def query_sat_apply(params: dict, cfg: QuerySATConfig, batch: SatBatch,
 
         # clause update
         if cfg.use_message_passing:
-            var_msg = mlp_apply(params["lit_mlp"], mcfgs["lit_mlp"][0], v1)
+            var_msg = mlp_apply(params["lit_mlp"], mcfgs["lit_mlp"][0], v1,
+                                compute_dtype=cdt)
             lit1, lit2 = torch.split(var_msg, var_msg.shape[1] // 2, dim=1)
             literals = torch.cat([lit1, lit2], dim=0)          # [2V, Q]
             clause_messages = l2c(literals) * rev_degree_weight
@@ -320,7 +355,8 @@ def query_sat_apply(params: dict, cfg: QuerySATConfig, batch: SatBatch,
         else:
             clause_unit = torch.cat([clause_state, clauses_loss], dim=-1)
         clause_data = mlp_apply(params["clause_mlp"],
-                                mcfgs["clause_mlp"][0], clause_unit)
+                                mcfgs["clause_mlp"][0], clause_unit,
+                                compute_dtype=cdt)
 
         variables_loss_all = clause_data[:, :Q]
         new_clause_value = pair_norm_clauses(clause_data[:, Q:], batch) * \
@@ -332,13 +368,15 @@ def query_sat_apply(params: dict, cfg: QuerySATConfig, batch: SatBatch,
         unit = torch.cat([variables_grad, v1, variables_loss[:V],
                           variables_loss[V:]], dim=-1)
         new_variables = mlp_apply(params["update_gate"],
-                                  mcfgs["update_gate"][0], unit)
+                                  mcfgs["update_gate"][0], unit,
+                                  compute_dtype=cdt)
         new_variables = pair_norm_vars(new_variables, batch) * 0.25
         new_variables = new_variables + 0.1 * variables
 
         # logits and per-graph loss
         logits = mlp_apply(params["variables_output"],
-                           mcfgs["variables_output"][0], new_variables)
+                           mcfgs["variables_output"][0], new_variables,
+                           compute_dtype=cdt)
         if cfg.supervised:
             per_var_loss = diffusion_kl_loss(smoothed_labels, logits,
                                              noise_scale)
@@ -386,12 +424,11 @@ def query_sat_apply(params: dict, cfg: QuerySATConfig, batch: SatBatch,
         upd_clause_state = torch.where(
             cont, blend_c,
             torch.where(newly_done, new_clause_state, clause_state))
-        if collect:
-            round_stats.append(_round_stats(
-                logit_loss, query, variables_grad, new_variables,
-                new_clause_state, logits, sat))
+        stats = _round_stats(
+            logit_loss, query, variables_grad, new_variables,
+            new_clause_state, logits, sat) if collect else None
         return (upd_variables, upd_clause_state, upd_logits, upd_best,
-                loss_sum, loss_count, steps, done | sat)
+                loss_sum, loss_count, steps, done | sat), stats
 
     carry = (
         torch.ones((V, cfg.feature_maps), device=dev),        # variables
@@ -403,10 +440,16 @@ def query_sat_apply(params: dict, cfg: QuerySATConfig, batch: SatBatch,
         torch.zeros((), dtype=torch.int32, device=dev),       # steps taken
         torch.zeros((), dtype=torch.bool, device=dev),        # done flag
     )
+    # training always runs the fixed-count loop: it exits early only by
+    # masking
+    early_exit = early_exit and not training
     collect = cfg.collect_round_stats and not early_exit
     round_stats: list[dict] = []
+    body = remat_body(cfg, training, round_body)
     for step_idx in range(rounds):
-        carry = round_body(carry, step_idx)
+        carry, stats = body(carry, draw_noise(step_idx))
+        if collect:
+            round_stats.append(stats)
         if early_exit and bool(carry[-1]):
             break
     (variables, clause_state, last_logits, best_map_vars, loss_sum,

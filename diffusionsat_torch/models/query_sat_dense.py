@@ -1,10 +1,16 @@
-"""QuerySAT on the dense per-graph block layout, in inference mode.
+"""QuerySAT on the dense per-graph block layout, for inference and training.
 
 Counterpart of the TPU package's `models/query_sat_dense.py`: the same
 algorithm as `models/query_sat.py` (recurrent query loop, closed-form query
 gradient, 8 logit heads, diffusion conditioning, masked early exit) over
 `DenseSatBatch` blocks. Every aggregation is a batched matrix product or a
 masked axis reduction (`ops/dense_ops.py`).
+
+`cfg.block_bf16` is the block-level bf16 flow: params and incidence are
+cast once, outside the round loop; recurrent states and hidden activations
+flow bf16 and every product accumulates in f32; degree weights, pair norms,
+the loss chain and the head weighting stay f32. Gradients reach the f32
+master params through the cast.
 
 Parameters are shared with the flat model: the MLPs act on the last axis
 only, so one params tree (`query_sat_init`, or a `.npz` file read by
@@ -13,7 +19,10 @@ only, so one params tree (`query_sat_init`, or a `.npz` file read by
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+from torch.utils import _pytree as pytree
 
 from diffusionsat_torch.device import resolve_device
 from diffusionsat_torch.diffusion.schedule import (
@@ -29,6 +38,7 @@ from diffusionsat_torch.models.query_sat import (
     _round_stats,
     _stack_round_stats,
     params_to,
+    remat_body,
     query_sat_init,  # noqa: F401  re-export: params are layout-independent
 )
 from diffusionsat_torch.nn.mlp import mlp_apply
@@ -54,7 +64,6 @@ def _prepare_noisy_labels(batch: DenseSatBatch, labels: torch.Tensor,
     return torch.cat([noisy, den], dim=-1)
 
 
-@torch.no_grad()
 def query_sat_dense_apply(params: dict, cfg: QuerySATConfig,
                           batch: DenseSatBatch,
                           generator: torch.Generator | None = None,
@@ -72,9 +81,19 @@ def query_sat_dense_apply(params: dict, cfg: QuerySATConfig,
 
     `labels`: [G, Vg] 0/1 bits. All shapes are [G, nodes, features].
     `round_noise` ([rounds, G, Vg, 4]) replaces the per-round exploration
-    noise draws. `generator` must live on `device`.
+    noise draws. `generator` must live on `device`. `training=True`
+    records the autograd graph and defaults `rounds` to `cfg.train_rounds`.
     """
-    _check_ported(cfg, training, None, None)
+    _check_ported(cfg, None, None)
+    with torch.set_grad_enabled(training):
+        return _query_sat_dense_apply(
+            params, cfg, batch, generator, training, labels, noise_scale,
+            noisy_num, denoised_num, rounds, early_exit, round_noise, device)
+
+
+def _query_sat_dense_apply(params, cfg, batch, generator, training, labels,
+                           noise_scale, noisy_num, denoised_num, rounds,
+                           early_exit, round_noise, device):
     dev = resolve_device(device)
     batch = batch.to(dev)
     params = params_to(params, dev)
@@ -82,7 +101,8 @@ def query_sat_dense_apply(params: dict, cfg: QuerySATConfig,
     G, Vg, Cg = batch.G, batch.Vg, batch.Cg
     K, Q = cfg.logit_maps, cfg.query_maps
     if rounds is None:
-        rounds = cfg.test_rounds
+        rounds = cfg.train_rounds if training else cfg.test_rounds
+    cdt = cfg.compute_dtype
 
     if noise_scale is None:
         noise_scale = torch.rand((), generator=generator, device=dev)
@@ -116,57 +136,73 @@ def query_sat_dense_apply(params: dict, cfg: QuerySATConfig,
                                  0.0)
     smoothed_labels = labels.to(torch.float32)[..., None].expand(G, Vg, K)
 
-    def round_body(carry, step_idx):
+    # block-level bf16: params and incidence are cast once here, not inside
+    # every round
+    state_dt = torch.bfloat16 if cfg.block_bf16 else torch.float32
+    if cfg.block_bf16:
+        c = lambda t: t.to(torch.bfloat16)  # noqa: E731
+        params = pytree.tree_map(c, params)
+        batch = dataclasses.replace(batch, incidence=c(batch.incidence))
+        noisy_labels = c(noisy_labels)
+    else:
+        c = lambda t: t  # noqa: E731
+
+    def draw_noise(step_idx):
+        if cfg.debug_zero_noise:
+            return torch.zeros((G, Vg, 4), dtype=state_dt, device=dev)
+        if round_noise is not None:
+            return round_noise[step_idx].to(state_dt)
+        return torch.randn((G, Vg, 4), generator=generator,
+                           device=dev).to(state_dt)
+
+    def round_body(carry, noise4):
         (variables, clause_state, last_logits, best_map_vars, loss_sum,
          loss_count, steps, done) = carry
-
-        if cfg.debug_zero_noise:
-            noise4 = torch.zeros((G, Vg, 4), device=dev)
-        elif round_noise is not None:
-            noise4 = round_noise[step_idx]
-        else:
-            noise4 = torch.randn((G, Vg, 4), generator=generator, device=dev)
         v1 = torch.cat([variables, noise4, noisy_labels], dim=-1)
 
         # query and the closed-form gradient of the clause loss wrt it
         query = mlp_apply(params["variables_query"],
-                          mcfgs["variables_query"][0], v1)
+                          mcfgs["variables_query"][0], v1, compute_dtype=cdt)
         clauses_loss, grads = dops.softplus_loss_and_grad(query, batch)
         variables_grad = grads * var_degree_weight
         clauses_loss = clauses_loss * 4.0
 
         # clause update
         if cfg.use_message_passing:
-            var_msg = mlp_apply(params["lit_mlp"], mcfgs["lit_mlp"][0], v1)
+            var_msg = mlp_apply(params["lit_mlp"], mcfgs["lit_mlp"][0], v1,
+                                compute_dtype=cdt)
             lit1, lit2 = torch.split(var_msg, var_msg.shape[-1] // 2, dim=-1)
             literals = torch.cat([lit1, lit2], dim=1)         # [G, 2Vg, Q]
-            clause_messages = dops.lit_to_clause(batch, literals) * \
+            clause_messages = dops.lit_to_clause(batch, c(literals)) * \
                 rev_degree_weight
             clause_unit = torch.cat(
-                [clause_state, clause_messages, clauses_loss], dim=-1)
+                [clause_state, c(clause_messages), c(clauses_loss)], dim=-1)
         else:
-            clause_unit = torch.cat([clause_state, clauses_loss], dim=-1)
+            clause_unit = torch.cat([clause_state, c(clauses_loss)], dim=-1)
         clause_data = mlp_apply(params["clause_mlp"],
-                                mcfgs["clause_mlp"][0], clause_unit)
+                                mcfgs["clause_mlp"][0], clause_unit,
+                                compute_dtype=cdt)
 
         variables_loss_all = clause_data[..., :Q]
         new_clause_value = dops.pair_norm_clauses(clause_data[..., Q:],
                                                   batch) * 0.25
-        new_clause_state = new_clause_value + 0.1 * clause_state
+        new_clause_state = c(new_clause_value + 0.1 * clause_state)
 
         # variable update
-        variables_loss = dops.clause_to_lit(batch, variables_loss_all) * \
+        variables_loss = dops.clause_to_lit(batch, c(variables_loss_all)) * \
             degree_weight
-        unit = torch.cat([variables_grad, v1, variables_loss[:, :Vg],
-                          variables_loss[:, Vg:]], dim=-1)
+        unit = torch.cat([c(variables_grad), v1, c(variables_loss[:, :Vg]),
+                          c(variables_loss[:, Vg:])], dim=-1)
         new_variables = mlp_apply(params["update_gate"],
-                                  mcfgs["update_gate"][0], unit)
+                                  mcfgs["update_gate"][0], unit,
+                                  compute_dtype=cdt)
         new_variables = dops.pair_norm_vars(new_variables, batch) * 0.25
-        new_variables = new_variables + 0.1 * variables
+        new_variables = c(new_variables + 0.1 * variables)
 
         # logits and per-graph loss
         logits = mlp_apply(params["variables_output"],
-                           mcfgs["variables_output"][0], new_variables)
+                           mcfgs["variables_output"][0], new_variables,
+                           compute_dtype=cdt)
         if cfg.supervised:
             per_var_loss = diffusion_kl_loss(smoothed_labels, logits,
                                              noise_scale)
@@ -212,16 +248,15 @@ def query_sat_dense_apply(params: dict, cfg: QuerySATConfig,
         upd_clause_state = torch.where(
             cont, blend_c,
             torch.where(newly_done, new_clause_state, clause_state))
-        if collect:
-            round_stats.append(_round_stats(
-                logit_loss, query, variables_grad, new_variables,
-                new_clause_state, logits, sat))
+        stats = _round_stats(
+            logit_loss, query, variables_grad, new_variables,
+            new_clause_state, logits, sat) if collect else None
         return (upd_variables, upd_clause_state, upd_logits, upd_best,
-                loss_sum, loss_count, steps, done | sat)
+                loss_sum, loss_count, steps, done | sat), stats
 
     carry = (
-        torch.ones((G, Vg, cfg.feature_maps), device=dev),    # variables
-        torch.ones((G, Cg, cfg.feature_maps), device=dev),    # clause state
+        torch.ones((G, Vg, cfg.feature_maps), dtype=state_dt, device=dev),
+        torch.ones((G, Cg, cfg.feature_maps), dtype=state_dt, device=dev),
         torch.zeros((G, Vg, K), device=dev),                  # last logits
         torch.zeros((G, Vg), dtype=torch.int32, device=dev),  # best head
         torch.zeros((), device=dev),                          # loss sum
@@ -229,10 +264,16 @@ def query_sat_dense_apply(params: dict, cfg: QuerySATConfig,
         torch.zeros((), dtype=torch.int32, device=dev),       # steps taken
         torch.zeros((), dtype=torch.bool, device=dev),        # done flag
     )
+    # training always runs the fixed-count loop: it exits early only by
+    # masking
+    early_exit = early_exit and not training
     collect = cfg.collect_round_stats and not early_exit
     round_stats: list[dict] = []
+    body = remat_body(cfg, training, round_body)
     for step_idx in range(rounds):
-        carry = round_body(carry, step_idx)
+        carry, stats = body(carry, draw_noise(step_idx))
+        if collect:
+            round_stats.append(stats)
         # reading the flag is a host sync; the early-exit loop pays it
         # after every round so that no round runs once the batch is solved
         if early_exit and bool(carry[-1]):

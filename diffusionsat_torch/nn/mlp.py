@@ -15,6 +15,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from diffusionsat_torch.ops.lowp import linear_f32acc
+
 
 def leaky_gelu(x: torch.Tensor) -> torch.Tensor:
     sg = torch.sigmoid(1.702 * x)
@@ -82,24 +84,37 @@ def mlp_init(generator: torch.Generator, cfg: MLPConfig, in_dim: int
 
 def mlp_apply(params: dict, cfg: MLPConfig, x: torch.Tensor,
               compute_dtype=None) -> torch.Tensor:
-    """Apply the Dense stack in f32. `compute_dtype` (bf16 matmul operands)
-    is not ported yet."""
+    """Apply the Dense stack. With `compute_dtype` (e.g. torch.bfloat16) the
+    operands of every product are cast down per call while accumulation and
+    activations stay float32.
+
+    The block-bf16 flow is another mode: a bf16 input (with bf16 params,
+    cast once by the caller) runs bf16 products with f32 accumulation;
+    hidden activations are written back as bf16 and the last layer's
+    output stays f32 for the loss chain. Unlike `compute_dtype` it adds no
+    per-call operand casts. The layer-norm path computes in f32.
+    """
     from diffusionsat_torch.nn.normalization import layer_norm
 
-    if compute_dtype is not None or x.dtype != torch.float32:
-        raise NotImplementedError(
-            "mlp_apply runs f32 only; reduced-precision modes (block_bf16, "
-            "compute_dtype) wait for the ROADMAP item 'Train step and "
-            "optimizer'")
     act = _ACTS[cfg.activation]
     out_act = _ACTS[cfg.out_activation]
     n = len(params["w"])
+    bf_flow = compute_dtype is None and x.dtype == torch.bfloat16
+
+    def dot(a, w):
+        if compute_dtype is not None:
+            a = a.to(compute_dtype)
+            w = w.to(compute_dtype)
+        if a.dtype == torch.float32 and w.dtype == torch.float32:
+            return a @ w
+        return linear_f32acc(a, w)
+
     for i, (w, b) in enumerate(zip(params["w"], params["b"])):
         last = i == n - 1
         if cfg.do_layer_norm and not last:
             # Dense (bias only for i>0) -> LayerNorm after the first hidden
             # layer -> activation
-            x = x @ w
+            x = dot(x, w)
             if i > 0:
                 x = x + b
             if i == 0:
@@ -107,6 +122,8 @@ def mlp_apply(params: dict, cfg: MLPConfig, x: torch.Tensor,
                                bias=params["norm_bias"])
             x = act(x)
         else:
-            x = x @ w + b
+            x = dot(x, w) + b
             x = out_act(x) if last else act(x)
+            if bf_flow and not last:
+                x = x.to(torch.bfloat16)
     return x

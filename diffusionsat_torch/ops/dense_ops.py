@@ -5,28 +5,92 @@ Counterpart of the TPU package's `ops/dense_ops.py`. Semantics match
 dense incidence, so every aggregation is a batched matrix product or a
 masked axis reduction: no gathers and no segment ops. The incidence
 products are library products (`torch.einsum`), as the TPU package leaves
-them to its compiler; on the card they run in full f32 (`device.py`
-switches TF32 off), the counterpart of that package's HIGHEST precision.
+them to its compiler, and always return f32.
+
+`INCIDENCE_PRECISION` is the module knob for these two products only; the
+training script sets it (`--incidence_precision`) for the length of a run
+through `incidence_precision(mode)`, which restores the value it found.
+The process-wide TF32 switch (`device.py` turns it off) is never touched:
+
+- "highest": full f32, the counterpart of that package's HIGHEST.
+- "high": that package's three-pass bf16 has no twin on this card; the
+  nearest mode it offers is TF32. The feature operand is rounded to TF32
+  (10 mantissa bits) and the product accumulates in f32, which is the
+  value a TF32 tensor-core product gives. The incidence's small integers
+  are exact. The backward is not rounded.
+- "default": bf16 operands with f32 accumulation. Exact for the
+  incidence; the features round to 8 mantissa bits, the gradients too.
+
+Under the block-bf16 flow both operands arrive as bf16 and every mode
+computes the same bf16 product with f32 accumulation. A bf16 incidence
+with f32 features (the query gradient, the SAT check) is promoted to f32
+and then follows the mode.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 
 from diffusionsat_torch.graph.dense_batch import DenseSatBatch
+from diffusionsat_torch.ops.lowp import bmm_f32acc
+
+INCIDENCE_PRECISION = "highest"
+PRECISIONS = ("highest", "high", "default")
+
+
+@contextlib.contextmanager
+def incidence_precision(mode: str):
+    """`INCIDENCE_PRECISION` set to `mode` inside the block and put back to
+    what it was on the way out."""
+    global INCIDENCE_PRECISION
+    if mode not in PRECISIONS:
+        raise ValueError(f"INCIDENCE_PRECISION must be one of {PRECISIONS}, "
+                         f"got {mode!r}")
+    before, INCIDENCE_PRECISION = INCIDENCE_PRECISION, mode
+    try:
+        yield
+    finally:
+        INCIDENCE_PRECISION = before
+
+
+def _round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to TF32's 10 mantissa bits (to nearest, ties away
+    from zero in magnitude), with a straight-through gradient."""
+    bits = x.detach().contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return x + (rounded - x.detach())
+
+
+def _incidence_product(inc: torch.Tensor, x: torch.Tensor, to_lit: bool
+                       ) -> torch.Tensor:
+    mode = INCIDENCE_PRECISION
+    if mode not in PRECISIONS:
+        raise ValueError(f"INCIDENCE_PRECISION must be one of {PRECISIONS}, "
+                         f"got {mode!r}")
+    bf = torch.bfloat16
+    if mode == "default" or (inc.dtype == bf and x.dtype == bf):
+        a = inc.to(bf)
+        return bmm_f32acc(a.transpose(1, 2) if to_lit else a, x.to(bf))
+    if inc.dtype != torch.float32 or x.dtype != torch.float32:
+        inc, x = inc.float(), x.float()
+    if mode == "high":
+        x = _round_tf32(x)
+    return torch.einsum("gcl,gcf->glf" if to_lit else "gcl,glf->gcf", inc, x)
 
 
 def lit_to_clause(batch: DenseSatBatch, lit_features: torch.Tensor
                   ) -> torch.Tensor:
     """[G, 2Vg, F] -> [G, Cg, F]: out[g,c] = sum_l inc[g,c,l] * x[g,l]."""
-    return torch.einsum("gcl,glf->gcf", batch.incidence, lit_features)
+    return _incidence_product(batch.incidence, lit_features, to_lit=False)
 
 
 def clause_to_lit(batch: DenseSatBatch, clause_features: torch.Tensor
                   ) -> torch.Tensor:
     """[G, Cg, F] -> [G, 2Vg, F]: the transpose aggregation."""
-    return torch.einsum("gcl,gcf->glf", batch.incidence, clause_features)
+    return _incidence_product(batch.incidence, clause_features, to_lit=True)
 
 
 def literal_degrees(batch: DenseSatBatch) -> torch.Tensor:

@@ -13,7 +13,8 @@ segmented sum over a CSR plan, one warp per output row, no atomics.
   else. `LAUNCHES` counts kernel launches per direction.
 - `plan_lit_to_clause` / `plan_clause_to_lit`: the differentiable pair the
   model and the losses call; each one's backward is the other direction,
-  launched through the same kernel.
+  launched through the same kernel (and counted in `LAUNCHES` under the
+  direction it launches).
 
 The kernel is compiled from the package's sources with nvcc at first use,
 into `_build/` beside this package, and bound with ctypes.
@@ -254,6 +255,12 @@ class _PlannedSpMM(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        # autograd hands over expanded or sliced cotangents; the kernel
+        # reads rows of any stride but needs unit column stride
+        if grad.shape[1] > 0 and grad.stride(1) != 1:
+            grad = grad.contiguous()
         return gather_segsum(grad, ctx.bwd), None, None
 
 

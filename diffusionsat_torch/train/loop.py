@@ -1,23 +1,34 @@
-"""Predict step and metric evaluation.
+"""Training loop: train and predict steps, metric evaluation, the loop.
 
-Counterpart of the evaluation half of the TPU package's `train/loop.py`
-(`make_predict_step`, `evaluate_metrics`). The train steps of that module
-are not ported yet (ROADMAP Queue 1, item 4).
+Counterpart of the TPU package's `train/loop.py`: functions over an
+explicit `TrainState`, run as eager PyTorch. The state's random key is a
+`torch.Generator` on the device, which every step advances in place. A
+step's loss, round count and gradient norm stay on the device; `train`
+fetches the losses once per log window. That package's many-steps-in-one-
+dispatch step is not ported (ROADMAP Queue 1, item 5).
 
-A flat batch runs with `BatchPlans`, so on the card its literal-clause
-aggregations go through the segsum kernel. Plans are host-built: pass a
-batch together with its plans (`plan_batches`) to build them once, before
-the timed or repeated work; a bare flat batch gets its plans built inside
-the step, once per call however many tries it takes.
+A flat batch runs with `BatchPlans` in every step here (train, self-
+supervised, diagnostics, predict), so on the card its literal-clause
+aggregations go through the segsum kernel, forward and backward. Plans are
+host-built: pass a batch together with its plans (`plan_batches`) to build
+them once, before the timed or repeated work; a bare flat batch gets its
+plans built inside the step, once per call.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
 import itertools
-from typing import Callable, Iterable, Sequence
+import json
+import time
+from pathlib import Path
+from typing import Any, Callable, Iterable, Iterator, Sequence
 
 import torch
+from torch.utils import _pytree as pytree
+
+from diffusionsat_torch.diffusion.schedule import construct_training_input
 
 from diffusionsat_torch.device import resolve_device
 from diffusionsat_torch.graph.batch import SatBatch
@@ -33,11 +44,269 @@ Batch = SatBatch | DenseSatBatch
 PlannedBatch = tuple[Batch, BatchPlans | None]
 
 
-def _takes_plans(apply_fn: Callable) -> bool:
+@dataclasses.dataclass
+class TrainState:
+    params: Any
+    opt_state: Any
+    step: int                            # optimizer steps taken
+    generator: torch.Generator | None    # on the device; advanced in place
+
+    def replace(self, **kw) -> "TrainState":
+        return dataclasses.replace(self, **kw)
+
+
+def _takes(apply_fn: Callable, name: str) -> bool:
     try:
-        return "plans" in inspect.signature(apply_fn).parameters
+        return name in inspect.signature(apply_fn).parameters
     except (TypeError, ValueError):
         return False
+
+
+def _takes_plans(apply_fn: Callable) -> bool:
+    return _takes(apply_fn, "plans")
+
+
+def _accepts_labels(apply_fn: Callable) -> bool:
+    return _takes(apply_fn, "labels")
+
+
+def draw_label_rows(batch: Batch, generator: torch.Generator | None,
+                    isolation_alpha: float = 0.0) -> torch.Tensor:
+    """The bank row each graph trains on this step: [G] for a dense batch,
+    [G + 1] for a flat one (the extra entry serves the padding segment G
+    that `var_graph` points padded variables at).
+
+    Uniform over the K rows, or, with `isolation_alpha` != 0 and
+    `label_isolation_k` attached, a per-graph softmax draw with logits
+    alpha * isolation (Gumbel-max): positive alpha over-samples isolated
+    solutions.
+    """
+    sk = batch.solutions_k
+    K, dev = sk.shape[0], sk.device
+    G = batch.graph_mask.shape[0]
+    flat = sk.dim() == 2
+    iso = getattr(batch, "label_isolation_k", None)
+    if isolation_alpha != 0.0 and iso is not None:
+        u = torch.rand((K, G), generator=generator, device=dev)
+        gumbel = -torch.log(-torch.log(u.clamp_min(1e-38)))
+        kg = torch.argmax(isolation_alpha * iso + gumbel, dim=0)
+        if flat:
+            kg = torch.cat([kg, kg.new_zeros(1)])
+        return kg
+    return torch.randint(0, K, (G + 1 if flat else G,), generator=generator,
+                         device=dev)
+
+
+def pick_labels(batch: Batch, kg: torch.Tensor) -> torch.Tensor:
+    """Labels of the drawn rows: [G, Vg] (dense) or [V] (flat)."""
+    sk = batch.solutions_k
+    if sk.dim() == 3:  # dense layout: [K, G, Vg]
+        return sk[kg, torch.arange(sk.shape[1], device=sk.device), :]
+    # flat layout: [K, V]; var_graph's padding id G indexes the extra entry
+    return sk[kg[batch.var_graph.long()],
+              torch.arange(sk.shape[1], device=sk.device)]
+
+
+def _select_labels(batch: Batch, generator: torch.Generator | None,
+                   isolation_alpha: float = 0.0) -> torch.Tensor:
+    """Per-graph random label draw from the batch's multi-label bank
+    (`solutions_k`: [K, V] flat, [K, G, Vg] dense). Without the bank this
+    returns `batch.solutions` and draws nothing."""
+    if batch.solutions_k is None:
+        return batch.solutions
+    return pick_labels(batch, draw_label_rows(batch, generator,
+                                              isolation_alpha))
+
+
+def _flat_plans(batch: Batch, plans: BatchPlans | None,
+                dev: torch.device) -> BatchPlans | None:
+    """A flat batch's plans on `dev`, built here when the caller passed
+    none; None for a dense batch."""
+    if not isinstance(batch, SatBatch):
+        return None
+    if plans is None:
+        plans = build_batch_plans(batch)
+    return plans.to(dev)
+
+
+def _grad_leaves(params):
+    """The params tree with every leaf a fresh leaf that records gradients
+    (sharing storage), and the flat list of those leaves."""
+    leaves, spec = pytree.tree_flatten(params)
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
+    return pytree.tree_unflatten(leaves, spec), leaves, spec
+
+
+def _grads_of(loss, leaves, spec):
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, leaves)]
+    return pytree.tree_unflatten(grads, spec), grads
+
+
+def _global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
+def _make_step(apply_fn: Callable, cfg, optimizer, plan_kw: str | None,
+               device: str | torch.device):
+    dev = resolve_device(device)
+    with_labels = _accepts_labels(apply_fn)
+    iso_alpha = float(getattr(cfg, "label_isolation_alpha", 0.0))
+    if plan_kw is None and _takes_plans(apply_fn):
+        plan_kw = "plans"
+
+    def train_step(state: TrainState, batch, plan=None):
+        if plan_kw == "plans":
+            plan = _flat_plans(batch, plan, dev)
+        batch = batch.to(dev)
+        # the label draw happens only when the batch has a bank: a step on
+        # a single-label batch must not burn random numbers for it
+        multilabel = with_labels and \
+            getattr(batch, "solutions_k", None) is not None
+        labels = _select_labels(batch, state.generator, iso_alpha) \
+            if multilabel else batch.solutions
+        kw = {"labels": labels} if with_labels else {}
+        if plan_kw is not None:
+            kw[plan_kw] = plan
+        params, leaves, spec = _grad_leaves(state.params)
+        _, loss, steps, _ = apply_fn(params, cfg, batch, state.generator,
+                                     training=True, device=dev, **kw)
+        grads, grad_list = _grads_of(loss, leaves, spec)
+        new_params, opt_state = optimizer.update(grads, state.opt_state,
+                                                 state.params)
+        new_state = TrainState(params=new_params, opt_state=opt_state,
+                               step=state.step + 1,
+                               generator=state.generator)
+        return new_state, {"loss": loss.detach(), "steps_taken": steps,
+                           "gradnorm": _global_norm(grad_list)}
+
+    return train_step
+
+
+def make_train_step_for(apply_fn: Callable, cfg, optimizer,
+                        device: str | torch.device = "cuda"
+                        ) -> Callable[[TrainState, Batch],
+                                      tuple[TrainState, dict]]:
+    """Train step for any model with the standard apply contract
+    (params, cfg, batch, generator, training[, labels][, plans]) ->
+    (logits, loss, steps, aux). Supervised models get the batch's solution
+    bits as labels, or a fresh per-graph draw from its bank; a model that
+    takes `plans` gets a flat batch's, built in the call. Returns (new
+    state, {"loss", "steps_taken", "gradnorm"}), all three device
+    tensors."""
+    return _make_step(apply_fn, cfg, optimizer, None, device)
+
+
+def make_train_step(cfg, optimizer, device: str | torch.device = "cuda"):
+    """Supervised-diffusion train step on flat QuerySAT over (state,
+    batch): the batch's plans are built inside every call, so prefer
+    `make_planned_train_step` for repeated batches."""
+    return make_train_step_for(query_sat_apply, cfg, optimizer, device)
+
+
+def make_planned_train_step_for(apply_fn: Callable, cfg, optimizer,
+                                plan_kw: str = "plans",
+                                device: str | torch.device = "cuda"):
+    """Train step over (state, batch, plan): like `make_train_step_for`,
+    threading a per-batch execution plan into the apply under `plan_kw`."""
+    return _make_step(apply_fn, cfg, optimizer, plan_kw, device)
+
+
+def make_planned_train_step(cfg, optimizer,
+                            device: str | torch.device = "cuda"):
+    """Flat QuerySAT train step over (state, batch, plans): the
+    literal-clause aggregations run on the segsum kernel, forward and
+    backward (ops/segsum.BatchPlans)."""
+    return make_planned_train_step_for(query_sat_apply, cfg, optimizer,
+                                       device=device)
+
+
+def make_diagnostics_step(cfg, apply_fn: Callable = query_sat_apply,
+                          device: str | torch.device = "cuda"):
+    """Diagnostics forward and backward: one extra training-mode pass with
+    per-round in-model statistics (`aux["round_stats"]`) and a
+    parameter-gradient norm per MLP, kept out of the train step so it costs
+    nothing except when called. Returns run(params, batch, generator,
+    plans=None) -> a flat dict of python numbers and lists, read back from
+    the device in one fetch."""
+    dev = resolve_device(device)
+    diag_cfg = dataclasses.replace(cfg, collect_round_stats=True)
+    with_labels = _accepts_labels(apply_fn)
+    with_plans = _takes_plans(apply_fn)
+
+    def run(params, batch, generator, plans=None) -> dict:
+        if with_plans:
+            plans = _flat_plans(batch, plans, dev)
+        batch = batch.to(dev)
+        kw = {"labels": batch.solutions} if with_labels else {}
+        if with_plans:
+            kw["plans"] = plans
+        tree, leaves, spec = _grad_leaves(params)
+        _, loss, steps, aux = apply_fn(tree, diag_cfg, batch, generator,
+                                       training=True, device=dev, **kw)
+        grads, _ = _grads_of(loss, leaves, spec)
+        stats = aux["round_stats"]
+        norms = {k: _global_norm(pytree.tree_leaves(v))
+                 for k, v in grads.items()}
+        rounds = next(iter(stats.values())).shape[0]
+        # one host fetch for the whole record
+        packed = torch.cat(
+            [loss.detach().reshape(1), steps.to(torch.float32).reshape(1)] +
+            [v.detach().to(torch.float32) for v in stats.values()] +
+            [v.reshape(1) for v in norms.values()]).cpu().tolist()
+        out = {"diag_loss": packed[0], "diag_steps": int(packed[1])}
+        pos = 2
+        for k in stats:
+            out[f"round/{k}"] = [round(x, 5)
+                                 for x in packed[pos:pos + rounds]]
+            pos += rounds
+        for k in norms:
+            out[f"gradnorm/{k}"] = packed[pos]
+            pos += 1
+        return out
+
+    return run
+
+
+def make_selfsupervised_train_step(cfg, optimizer,
+                                   apply_fn: Callable = query_sat_apply,
+                                   device: str | torch.device = "cuda"):
+    """Self-conditioning diffusion train step: one pass without
+    self-conditioning, a second pass fed the detached sigmoid of the first
+    pass's logits; loss = loss1 + 2 * loss2. `apply_fn` selects the layout
+    (both take `noisy_num` and `denoised_num`). The step is over (state,
+    batch, plans=None): both passes of a flat batch run with its plans."""
+    dev = resolve_device(device)
+    with_plans = _takes_plans(apply_fn)
+
+    def train_step(state: TrainState, batch, plans=None):
+        if with_plans:
+            plans = _flat_plans(batch, plans, dev)
+        batch = batch.to(dev)
+        gen = state.generator
+        labels = _select_labels(batch, gen)
+        noise_scale = torch.rand((), generator=gen, device=dev)
+        noisy = construct_training_input(labels, noise_scale, gen)
+        params, leaves, spec = _grad_leaves(state.params)
+        common = dict(training=True, labels=labels, noise_scale=noise_scale,
+                      noisy_num=noisy, device=dev)
+        if with_plans:
+            common["plans"] = plans
+        logits, loss1, steps, _ = apply_fn(params, cfg, batch, gen, **common)
+        denoised = torch.sigmoid(logits).detach()
+        _, loss2, _, _ = apply_fn(params, cfg, batch, gen,
+                                  denoised_num=denoised, **common)
+        loss = loss1 + 2.0 * loss2
+        grads, _ = _grads_of(loss, leaves, spec)
+        new_params, opt_state = optimizer.update(grads, state.opt_state,
+                                                 state.params)
+        new_state = TrainState(params=new_params, opt_state=opt_state,
+                               step=state.step + 1, generator=gen)
+        return new_state, {"loss": loss.detach(), "loss1": loss1.detach(),
+                           "loss2": loss2.detach(), "steps_taken": steps}
+
+    return train_step
 
 
 def plan_batches(batches: Iterable[Batch],
@@ -86,9 +355,7 @@ def make_predict_step(cfg, apply_fn: Callable = query_sat_apply,
         dense = isinstance(batch, DenseSatBatch)
         kw = dict(extra, device=dev)
         if with_plans and not dense:
-            if plans is None:
-                plans = build_batch_plans(batch)
-            kw["plans"] = plans.to(dev)
+            kw["plans"] = _flat_plans(batch, plans, dev)
         batch = batch.to(dev)
         if draws is not None and len(draws) != prediction_tries:
             raise ValueError(f"{len(draws)} sets of draws for "
@@ -159,3 +426,64 @@ def evaluate_metrics(params, cfg, data: Iterable[Batch | PlannedBatch],
     for m in metrics:
         values.update(m.get_values(reset_state=True))
     return values
+
+
+def train(state: TrainState, train_step, data_iter: Iterator,
+          steps: int, log_every: int = 100,
+          eval_fn: Callable[[TrainState], dict] | None = None,
+          eval_every: int = 1000,
+          checkpoint_fn: Callable[[TrainState], None] | None = None,
+          ckpt_every: int = 1000,
+          log_file: str | Path | None = None,
+          tb_writer=None,
+          target_step: int | None = None) -> TrainState:
+    """The training loop. `tb_writer` (train/tb.TBWriter) mirrors the JSONL
+    records into TensorBoard.
+
+    `target_step`: stop once `state.step` reaches it. The budget is checked
+    after every step, so the loop never runs past it; a window cut short by
+    the budget is still logged."""
+    t0 = time.time()
+    window_losses: list[torch.Tensor] = []
+    prev_step = state.step
+
+    def log_window():
+        nonlocal t0, prev_step, window_losses
+        # one host fetch for the window, not one per scalar
+        losses = torch.stack(window_losses).cpu().tolist()
+        dt = time.time() - t0
+        t0 = time.time()
+        msg = {"step": state.step, "loss": sum(losses) / len(losses),
+               "steps_per_sec": (state.step - prev_step) / dt}
+        prev_step = state.step
+        window_losses = []
+        print(f"[train] {msg}")
+        if log_file is not None:
+            with Path(log_file).open("a") as f:
+                f.write(json.dumps(msg) + "\n")
+        if tb_writer is not None:
+            tb_writer.scalars(state.step, msg)
+
+    for i in range(steps):
+        if target_step is not None and state.step >= target_step:
+            break
+        batch = next(data_iter)
+        state, out = train_step(state, batch)
+        # the loss stays on the device until the window is logged
+        window_losses.append(out["loss"])
+        if (i + 1) % log_every == 0:
+            log_window()
+        if eval_fn is not None and (i + 1) % eval_every == 0:
+            vals = eval_fn(state)
+            print(f"[eval @ {state.step}] {vals}")
+            if log_file is not None:
+                with Path(log_file).open("a") as f:
+                    f.write(json.dumps({"step": state.step, **vals}) + "\n")
+            if tb_writer is not None:
+                tb_writer.scalars(state.step, vals)
+                tb_writer.flush()
+        if checkpoint_fn is not None and (i + 1) % ckpt_every == 0:
+            checkpoint_fn(state)
+    if window_losses:
+        log_window()
+    return state

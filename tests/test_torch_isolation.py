@@ -78,9 +78,16 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
         query_sat_dense_apply,
     )
     from diffusionsat_torch.solve_eval import main as eval_main
+    from diffusionsat_torch.train.adabelief import adabelief
+    from diffusionsat_torch.train.checkpoint import opt_state_from_numpy
     from diffusionsat_torch.train.loop import (
         evaluate_metrics,
+        make_diagnostics_step,
+        make_planned_train_step,
         make_predict_step,
+        make_selfsupervised_train_step,
+        make_train_step,
+        make_train_step_for,
         plan_batches,
     )
     from diffusionsat_torch.models.query_sat import (
@@ -107,6 +114,14 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
             lambda: DiffusionSampler(params, cfg, cnf, dense=False),
             lambda: DiffusionSampler(params, cfg, cnf),
             lambda: make_predict_step(cfg),
+            lambda: make_train_step(cfg, adabelief()),
+            lambda: make_train_step_for(query_sat_dense_apply, cfg,
+                                        adabelief()),
+            lambda: make_planned_train_step(cfg, adabelief()),
+            lambda: make_selfsupervised_train_step(cfg, adabelief()),
+            lambda: make_diagnostics_step(cfg),
+            lambda: query_sat_apply(params, cfg, batch, training=True),
+            lambda: opt_state_from_numpy(0, {}, {}),
             lambda: plan_batches([batch]),
             lambda: evaluate_metrics(params, cfg, [batch], [], None),
             lambda: eval_main(["--model_ckpt", ckpt, "--data_dir",

@@ -207,14 +207,28 @@ def test_rounds_after_solving_are_no_ops(mlk64):
     dict(cfg=dict(compute_dtype=torch.bfloat16)),
 ])
 def test_unported_modes_raise(mode):
+    """Sharded execution still raises, naming its ROADMAP item. The training
+    modes that raised before the training slice now run (their numbers are
+    held in test_torch_train_grads.py)."""
     cfg = tqs.QuerySATConfig(**SMALL, **mode.pop("cfg", {}))
     params = tqs.query_sat_init(torch.Generator().manual_seed(0), cfg)
     formulas, sols = random_formulas(0, n_formulas=2)
     _, tb = batch_pair(formulas, sols)
-    item = "Multi-device" if set(mode) & {"axis_name", "halo"} else \
-        "Train step and optimizer"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item '{item}'"):
-        tqs.query_sat_apply(params, cfg, tb, None, device="cpu", **mode)
+    if set(mode) & {"axis_name", "halo"}:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP item 'Multi-device'"):
+            tqs.query_sat_apply(params, cfg, tb, None, device="cpu", **mode)
+        return
+    if mode.get("training"):
+        for leaf in jax.tree.leaves(params):
+            leaf.requires_grad_(True)
+    out = tqs.query_sat_apply(params, cfg, tb, torch.Generator().manual_seed(1),
+                              device="cpu", **mode)
+    assert torch.isfinite(out[1]) and out[0].shape == (tb.V, 1)
+    assert out[1].requires_grad == bool(mode.get("training"))
+    with pytest.raises(ValueError, match="float32"):
+        tqs.query_sat_apply(params, dataclasses.replace(
+            cfg, dtype=torch.bfloat16), tb, None, device="cpu")
 
 
 def test_predict_mode_runs_from_a_generator():

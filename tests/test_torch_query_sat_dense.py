@@ -291,12 +291,25 @@ def test_mlk64_full_width_matches(regime):
     dict(cfg=dict(compute_dtype=torch.bfloat16)),
 ])
 def test_training_modes_raise(mode):
+    """The training modes raised before the training slice; now they run
+    (their numbers are held in test_torch_train_grads.py) and only an
+    unknown `remat` raises."""
     cfg = tqs.QuerySATConfig(**SMALL, **mode.pop("cfg", {}))
     params = tqs.query_sat_init(torch.Generator().manual_seed(0), cfg)
     _, _, _, td = _dense_pair(*random_formulas(0, n_formulas=2))
-    with pytest.raises(NotImplementedError,
-                       match="Train step and optimizer"):
-        tapply(params, cfg, td, None, device="cpu", **mode)
+    if mode.get("training"):
+        for leaf in jax.tree.leaves(params):
+            leaf.requires_grad_(True)
+    out = tapply(params, cfg, td, torch.Generator().manual_seed(1),
+                 device="cpu", **mode)
+    assert torch.isfinite(out[1]) and out[0].shape == (td.G, td.Vg, 1)
+    assert out[1].requires_grad == bool(mode.get("training"))
+    want = torch.bfloat16 if cfg.block_bf16 else torch.float32
+    assert out[3]["variables_state"].dtype == want
+    assert out[3]["logits_all_heads"].dtype == torch.float32
+    with pytest.raises(ValueError, match="remat"):
+        tapply(params, dataclasses.replace(cfg, remat="some"), td, None,
+               device="cpu")
 
 
 def test_predict_mode_runs_from_a_generator():

@@ -160,3 +160,48 @@ def test_wrapper_checks_input():
     # a device that is neither the CPU nor CUDA has no path
     with pytest.raises(ValueError):
         gather_segsum(torch.zeros(3, 4, device="meta"), plan.to("meta"))
+
+
+@pytest.mark.parametrize("cotangent", ["transposed", "expanded", "row_slice",
+                                       "column_slice"])
+def test_backward_takes_the_cotangents_autograd_hands_over(cotangent):
+    """Autograd hands the pair's backward expanded and sliced cotangents
+    (from `variables_loss[:V]`, `clause_data[:, :Q]`, a `sum()`); each must
+    give the gradient of the plain version."""
+    _, tb = _pair(11)
+    plans = build_batch_plans(tb)
+    rng = np.random.default_rng(0)
+    x0 = torch.from_numpy(rng.normal(size=(2 * tb.V, 8)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(8, tb.C)).astype(np.float32))
+
+    def loss_of(out):
+        if cotangent == "transposed":       # cotangent with column stride C
+            return (out.t() * w).sum()
+        if cotangent == "expanded":         # cotangent of stride (0, 0)
+            return out.sum()
+        if cotangent == "row_slice":
+            return (out[: tb.C // 2] ** 2).sum() - out[tb.C // 2:].sum()
+        return (out[:, :3] ** 2).sum()
+
+    grads = []
+    for fn in (lambda x: plan_lit_to_clause(x, plans),
+               lambda x: segsum_plain(x, plans.lit_to_clause)):
+        x = x0.clone().requires_grad_(True)
+        loss_of(fn(x)).backward()
+        grads.append(x.grad)
+    np.testing.assert_allclose(np_of(grads[0]), np_of(grads[1]), **TOL)
+
+
+def test_backward_is_skipped_when_no_gradient_is_asked():
+    from diffusionsat_torch.ops.segsum import _PlannedSpMM
+    _, tb = _pair(12)
+    plans = build_batch_plans(tb)
+    x = torch.ones((2 * tb.V, 4))
+    out = plan_lit_to_clause(x, plans)
+    assert not out.requires_grad       # nothing to differentiate
+
+    class Ctx:
+        needs_input_grad = (False, False, False)
+        bwd = None                     # would raise if it were launched
+    assert _PlannedSpMM.backward(Ctx, torch.ones((tb.C, 4))) == (
+        None, None, None)

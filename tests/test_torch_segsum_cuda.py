@@ -91,6 +91,38 @@ def test_pair_backward_is_other_direction(cuda):
 
 
 @pytest.mark.cuda
+def test_backward_counts_launches_and_takes_sliced_cotangents(cuda):
+    rng = np.random.default_rng(4)
+    C, L = 400, 300
+    seg = np.sort(rng.integers(0, C, size=1200))
+    src = rng.integers(0, L, size=1200)
+    fwd = build_segsum_plan("lit_to_clause", seg, src, np.ones(1200), C, L)
+    order = np.argsort(src, kind="stable")
+    bwd = build_segsum_plan("clause_to_lit", src[order], seg[order],
+                            np.ones(1200), L, C)
+    plans = segsum.BatchPlans(fwd, bwd).to(cuda)
+    x0 = torch.randn(L, 128, device=cuda)
+    w = torch.randn(128, C, device=cuda)
+    for loss_of in (lambda o: (o.t() * w).sum(), lambda o: o.sum(),
+                    lambda o: (o[:, :64] ** 2).sum() - o[: C // 2].sum()):
+        grads = []
+        for fn in (lambda x: plan_lit_to_clause(x, plans),
+                   lambda x: segsum_plain(x, plans.lit_to_clause)):
+            x = x0.clone().requires_grad_(True)
+            segsum.reset_launch_counts()
+            loss_of(fn(x)).backward()
+            grads.append(x.grad)
+            launched = dict(segsum.LAUNCHES)
+        assert launched == {"lit_to_clause": 0, "clause_to_lit": 0}
+        torch.testing.assert_close(grads[0], grads[1], **TOL)
+    x = x0.clone().requires_grad_(True)
+    segsum.reset_launch_counts()
+    plan_lit_to_clause(x, plans).sum().backward()
+    # the forward launches its own direction, the backward the other one
+    assert segsum.LAUNCHES == {"lit_to_clause": 1, "clause_to_lit": 1}
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_bad_input(cuda):
     rng = np.random.default_rng(3)
     plan = _random_plan(rng, 10, 8).to(cuda)
