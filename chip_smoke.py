@@ -11,7 +11,8 @@ Phases, each of which raises (exit code 1) on failure:
    (2000 threshold 3-SAT instances, 16 generator shards) into `data_cache/`;
 2. kernel vs plain: both directions of the planned SpMM at F = 128 on the
    sampler batch of `primes_3599_61x59.cnf`, on a 20 000-node threshold
-   3-SAT batch and on the first batch of the eval split: max-abs error
+   3-SAT batch, on the first batch of the eval split and on the flat
+   uniformity battery's batch (p24 formula 0, 125 copies): max-abs error
    against `segsum_plain`, and the times of the kernel, the plain version
    and the library calls for the same function (`index_select`, then
    `index_add_`), beside the bound;
@@ -40,7 +41,7 @@ Phases, each of which raises (exit code 1) on failure:
    params through the kernel against the plain path (loss, all 24 gradient
    tensors over 4 and over 32 rounds, printed beside the plain path's own
    run-to-run spread and beside both with the head losses left unsorted;
-   launches per step against the reckoned 128 each way); 150 optimizer
+   launches per step against the reckoned 128 each way); 80 optimizer
    steps each of the dense f32, the dense block-bf16 and the flat kernel
    step from a seeded init (the mean loss of the last fifth must lie below
    0.9 of the first fifth's; steps per second; peak memory; the flat step
@@ -48,19 +49,40 @@ Phases, each of which raises (exit code 1) on failure:
    self-conditioning step 256 times); `python -m
    diffusionsat_torch.diffusion_training` in-process in both layouts with
    one eval, checkpoints, a restore and the exported params read back by
-   the solving eval; and a profile of one train step per layout.
+   the solving eval; and a profile of one train step per layout;
+7. uniformity (a main path), with the sampling flagship
+   `query_sat_3sat_diffusion_mlk64_iso45.npz` at full width, 32 diffusion
+   steps x 32 rounds: `python -m diffusionsat_torch.uniformity_benchmark`
+   in-process on the first 3 formulas of the p24 panel at k = 10 (uniform,
+   diffusion_nofreeze and diffusion_mh_xor on the dense chain, then
+   diffusion_nofreeze on formula 0 through the flat chain, which must
+   launch the kernel): the formula keys must equal the recorded panel's,
+   every counted sample must satisfy its formula, diffusion_mh_xor must
+   find every solution and have a smaller mean entropy gap than
+   diffusion_nofreeze; a cut k64 training set (2000 instances where a real
+   run takes 60 000: data quantity only); `python -m
+   diffusionsat_torch.measure_bank_freq` on its first 2 batches with 8
+   chains each, whose SAT and outside-the-bank rates must lie in the
+   window the repo's table (`freq_iso45full.npz`) reads for batches of the
+   same formula sizes; and 20 dense steps of `python -m
+   diffusionsat_torch.diffusion_training` with `--label_samples 64
+   --label_isolation_alpha 0.45` and that table, warm-started from the
+   flagship (2 batches measured, the rest isolation-only, finite loss).
 
 Every line of standard output is one JSON object, except the card line of
-`nvidia-smi`, the eval CLI's count of test batches and the sampler's own
-note when it stops a formula early for too few satisfying samples. The
-line before the last lists the kernels; the last line is `{"ok": true,
+`nvidia-smi` and the lines that the entry points run in-process print
+themselves (the eval's count of test batches, the sampler's note when it
+stops a formula early, the training script's, the battery's and the
+measurement's progress lines). The line before the last lists the kernels; the last line is `{"ok": true,
 "device": {...}}`. Without CUDA, or run outside a checkout of the
 repository, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import io
 import json
 import shutil
 import subprocess
@@ -73,6 +95,9 @@ CKPT = ROOT / "pretrained" / "query_sat_3sat_diffusion_mlk64.npz"
 ASSETS = ROOT / "diffusionsat_tpu" / "data" / "assets"
 UF20 = ASSETS / "satlib" / "uf20-synth-1.cnf"
 PRIMES = ASSETS / "primes" / "primes_3599_61x59.cnf"
+ISO45 = ROOT / "pretrained" / "query_sat_3sat_diffusion_mlk64_iso45.npz"
+PANEL = ROOT / "benchmarks_iso45full_p24.jsonl"
+FREQ_TABLE = ROOT / "freq_iso45full.npz"
 KERNEL_SOURCE = "diffusionsat_torch/csrc/segsum.cu"
 REPLACES = "diffusionsat_tpu/ops/pallas_segsum.py:97"
 
@@ -90,15 +115,17 @@ MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 SOLVED_FRACTION_TOL = 0.05
 # one training forward and backward, kernel against plain path: the loss,
 # and every gradient tensor to this share of its largest entry (floored at
-# a hundredth of the largest gradient of all). The plain path, whose atomics
-# sum in no fixed order, differs from itself by 6e-4 to 4e-3 between two
-# runs on an H100, over 4 rounds as over 32, so the mark cannot be tighter.
-# The rank sort of the head losses is not what amplifies the summation
-# order: with the heads left unsorted both errors read the same
+# a hundredth of the largest gradient of all), with the rank order of the
+# head losses pinned to the plain run's. Left to sort for itself, the plain
+# path, whose atomics sum in no fixed order, differs from itself by 6e-4 to
+# 1.1e-2 between two runs on an H100: near-ties of two heads' losses swap
+# their rank weights
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL = 1e-2
 # training: the mean loss of the last fifth of the steps against the first
-TRAIN_STEPS = 150
+# (150 steps until the uniformity phase joined the run; cut to keep the
+# script well inside its time limit on a slow host)
+TRAIN_STEPS = 80
 LOSS_FALL_FACTOR = 0.9
 # launches of each direction in one 32-round flat train step: 2 a round
 # forward, and 2 a round as the backward of the other direction
@@ -110,10 +137,255 @@ TRAIN_SIZE = 4000
 # same distribution, so the window is about 3.5 standard errors wide
 PASS_MARK_WINDOW = (0.88, 0.93)
 LAYOUT_GAP_TOL = 0.03
+# the uniformity phase: panel formulas, samples per solution, the cut k64
+# training set (a real run takes 60 000 instances) and the measurement
+UNIFORMITY_FORMULAS = 3
+UNIFORMITY_K = 10
+BANK_TRAIN_SIZE = 2000
+BANK_K = 64
+FREQ_BATCHES = 2
+FREQ_CHAINS = 8
+# the measured rates must lie within this margin of the range the repo's
+# table reads over its batches of similar graph counts (+-10 graphs a
+# batch: a 20 000-node batch holds fewer graphs the larger its formulas)
+FREQ_RATE_MARGIN = 0.02
+FREQ_SIMILAR_GRAPHS = 10
+REWEIGHTED_STEPS = 20
 
 
 def emit(**obj):
     print(json.dumps(obj), flush=True)
+
+
+def uniformity_phase(dev, data_dir: Path, sync, busy_seconds) -> dict:
+    """Phase 7: the uniformity battery, the cut k64 bank, the bank-frequency
+    measurement and reweighted training. `busy_seconds(fn)` runs `fn` under
+    the profiler and returns the device's busy seconds. Returns the segsum
+    launches of the flat battery."""
+    import numpy as np
+
+    from diffusionsat_torch import (
+        diffusion_training,
+        measure_bank_freq,
+        uniformity_benchmark,
+    )
+    from diffusionsat_torch.config import parse_config
+    from diffusionsat_torch.diffusion.sampler import (
+        make_dense_diffusion_chain,
+    )
+    from diffusionsat_torch.graph.dense_batch import densify_batches_quantized
+    from diffusionsat_torch.ops import segsum
+    from diffusionsat_torch.sat.cnf import VariableAssignment
+    from diffusionsat_torch.train.checkpoint import load_model
+    from diffusionsat_torch.uniformity import reweight
+    from diffusionsat_torch.uniformity.benchmarks_file import formula_key
+
+    uni_dir = ROOT / "runs" / "chip_smoke_uniformity"
+    shutil.rmtree(uni_dir, ignore_errors=True)
+    uni_dir.mkdir(parents=True)
+    recorded = [json.loads(ln) for ln in
+                PANEL.read_text().splitlines()][:UNIFORMITY_FORMULAS]
+    panel = uniformity_benchmark.gen_benchmark_formulas(UNIFORMITY_FORMULAS)
+    keys = [formula_key(clauses) for _, clauses, _ in panel]
+    if keys != [r["key"] for r in recorded]:
+        raise RuntimeError("the panel's formula keys differ from the "
+                           "recorded panel's")
+
+    def run_battery(name, variants, layout, n_formulas):
+        out = uni_dir / f"{name}.jsonl"
+        segsum.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        uniformity_benchmark.main([
+            "--model_ckpt", str(ISO45), "--n_formulas", str(n_formulas),
+            "--k", str(UNIFORMITY_K), "--variants", ",".join(variants),
+            "--layout", layout, "--device", str(dev), "--out", str(out)])
+        sync()
+        wall = time.perf_counter() - t0
+        launched = dict(segsum.LAUNCHES)
+        recs = [json.loads(ln) for ln in out.read_text().splitlines()]
+        for rec, (n, clauses, _) in zip(recs, panel):
+            for variant in variants:
+                for key in rec[variant]["counts"]:
+                    asgn = VariableAssignment(n, clauses)
+                    asgn.assign_all_from_int(int(key))
+                    if not asgn.satisfiable():
+                        raise RuntimeError(f"{name}: {variant} counted an "
+                                           f"UNSAT sample on formula "
+                                           f"{rec['formula']}")
+        return recs, launched, wall
+
+    def battery_row(rec, variant):
+        r = rec[variant]
+        row = dict(chi2_p=r["chi2_p"], diversity=r["diversity"],
+                   entropy_gap=r["uniform_entropy"] - r["count_entropy"],
+                   seconds=r["elapsed_s"], ms_per_distinct=r["ms_per_distinct"],
+                   success_rate=r.get("success_rate"))
+        if "refine_s" in r:
+            row.update(refine_host_s=r["refine_s"],
+                       chain_s=r["elapsed_s"] - r["refine_s"])
+        return row
+
+    variants = ("uniform", "diffusion_nofreeze", "diffusion_mh_xor")
+    recs, dense_launches, wall = run_battery(
+        "battery_dense", variants, "dense", UNIFORMITY_FORMULAS)
+    if any(dense_launches.values()):
+        raise RuntimeError("the dense battery launched the segsum kernel")
+    gaps = {v: [] for v in variants}
+    for rec, rec_tpu in zip(recs, recorded):
+        for v in variants:
+            gaps[v].append(rec[v]["uniform_entropy"] -
+                           rec[v]["count_entropy"])
+        emit(phase="uniformity_battery", formula=rec["formula"],
+             key=rec["key"], n_vars=rec["n_vars"],
+             n_solutions=rec["n_solutions"], n_samples=rec["n_samples"],
+             layout="dense", k=UNIFORMITY_K,
+             **{v: battery_row(rec, v) for v in variants},
+             recorded_k40={v: battery_row(rec_tpu, v) for v in variants},
+             note="recorded_k40: the repo's records of the same formula at "
+                  "k = 40; their seconds are TPU times, not targets")
+        if rec["diffusion_mh_xor"]["diversity"] != 1.0:
+            raise RuntimeError(f"diffusion_mh_xor missed solutions of "
+                               f"formula {rec['formula']}")
+    mean_gap = {v: float(np.mean(g)) for v, g in gaps.items()}
+    flat_recs, uni_launches, flat_wall = run_battery(
+        "battery_flat", ("diffusion_nofreeze",), "flat", 1)
+    emit(phase="uniformity_battery_flat", formula=0, layout="flat",
+         k=UNIFORMITY_K, diffusion_nofreeze=battery_row(
+             flat_recs[0], "diffusion_nofreeze"),
+         dense_diffusion_nofreeze=battery_row(recs[0], "diffusion_nofreeze"),
+         launches=uni_launches, wall_s=flat_wall)
+    emit(phase="uniformity_summary", formulas=UNIFORMITY_FORMULAS,
+         k=UNIFORMITY_K, mean_entropy_gap=mean_gap, dense_wall_s=wall,
+         recorded_k40_mean_entropy_gap={
+             v: float(np.mean([r[v]["uniform_entropy"] -
+                               r[v]["count_entropy"] for r in recorded]))
+             for v in variants})
+    if not mean_gap["diffusion_mh_xor"] < mean_gap["diffusion_nofreeze"]:
+        raise RuntimeError(f"diffusion_mh_xor's mean entropy gap is not "
+                           f"below diffusion_nofreeze's: {mean_gap}")
+    for direction, count in uni_launches.items():
+        if count <= 0:
+            raise RuntimeError(f"segsum kernel ({direction}) was not "
+                               "launched on the flat uniformity battery")
+
+    # the cut k64 training set, its test split, and the measurement of the
+    # sampler's bank frequencies on its first batches
+    bank_argv = ["--train_size", str(BANK_TRAIN_SIZE), "--test_size", "200",
+                 "--label_samples", str(BANK_K), "--data_dir",
+                 str(data_dir)]
+    t0 = time.perf_counter()
+    bank_ds = diffusion_training.build_dataset(parse_config(bank_argv))
+    bank_batches = list(bank_ds.train_data())
+    bank_test = list(bank_ds.test_data())
+    emit(phase="bank_split", seconds=time.perf_counter() - t0,
+         instances=sum(int(b.n_graphs) for b in bank_batches),
+         batches=len(bank_batches), test_batches=len(bank_test), K=BANK_K,
+         graphs_per_batch=[int(b.n_graphs) for b in bank_batches],
+         cut_from=60000, note="data quantity is cut, not width or depth")
+    table_path = uni_dir / "freq.npz"
+    sync()
+    t0 = time.perf_counter()
+    agg = measure_bank_freq.main([
+        "--model_ckpt", str(ISO45), "--chains", str(FREQ_CHAINS),
+        "--max_batches", str(FREQ_BATCHES), "--train_size",
+        str(BANK_TRAIN_SIZE), "--label_samples", str(BANK_K), "--data_dir",
+        str(data_dir), "--device", str(dev), "--out", str(table_path)])
+    sync()
+    freq_wall = time.perf_counter() - t0
+    # one chain more on batch 0, profiled
+    params, cfg = load_model(ISO45, dev, test_rounds=32)
+    chain = make_dense_diffusion_chain(cfg, diffusion_steps=32,
+                                       test_rounds=32, freeze_sat=False)
+    dense0 = densify_batches_quantized([bank_batches[0]])[0].to(dev)
+
+    def one_chain():
+        chain(params, dense0, measure_bank_freq.chain_generator(0, 0, 0, dev))
+        sync()
+
+    chain_busy = busy_seconds(one_chain)
+    wall_per_chain = agg["wall_s"] / (FREQ_BATCHES * FREQ_CHAINS)
+    # the window: the repo's table over its batches of similar graph counts
+    with np.load(FREQ_TABLE) as z:
+        ref = [(len(z[f"sat_{i}"]),
+                z[f"sat_{i}"].sum() / (len(z[f"sat_{i}"]) * int(z["n_chains"])),
+                z[f"outside_{i}"].sum() /
+                (len(z[f"sat_{i}"]) * int(z["n_chains"])))
+               for i in range(int(z["n_batches"]))]
+    measured_ng = [int(b.n_graphs) for b in bank_batches[:FREQ_BATCHES]]
+    similar = [r for r in ref if min(measured_ng) - FREQ_SIMILAR_GRAPHS
+               <= r[0] <= max(measured_ng) + FREQ_SIMILAR_GRAPHS]
+    if not similar:
+        raise RuntimeError("no batch of the repo's table has a similar "
+                           "graph count")
+    sat_window = (min(r[1] for r in similar) - FREQ_RATE_MARGIN,
+                  max(r[1] for r in similar) + FREQ_RATE_MARGIN)
+    outside_max = max(r[2] for r in similar) + FREQ_RATE_MARGIN
+    emit(phase="measure_bank_freq", **agg, wall_s_measured=freq_wall,
+         graphs_per_batch=measured_ng,
+         wall_s_per_chain=wall_per_chain,
+         one_chain_device_busy_s=chain_busy,
+         busy_share_per_chain=chain_busy / wall_per_chain,
+         reference_batches=len(similar), sat_rate_window=sat_window,
+         outside_rate_max=outside_max,
+         reference_whole_table=dict(
+             sat_rate=float(np.mean([r[1] for r in ref])),
+             outside_rate=float(np.mean([r[2] for r in ref]))))
+    if not sat_window[0] <= agg["sat_rate"] <= sat_window[1]:
+        raise RuntimeError(f"measure_bank_freq: sat_rate {agg['sat_rate']} "
+                           f"outside {sat_window}")
+    if agg["outside_rate"] > outside_max:
+        raise RuntimeError(f"measure_bank_freq: outside_rate "
+                           f"{agg['outside_rate']} above {outside_max}")
+
+    # closed-loop reweighted training: the table attaches to the batches it
+    # was measured on, the rest get the isolation-only logits
+    with np.load(table_path) as z:
+        table = dict(z)
+    for i in range(FREQ_BATCHES):
+        b = bank_batches[i]
+        if str(table[f"fingerprint_{i}"]) != reweight.batch_fingerprint(b) \
+                or str(table[f"content_fingerprint_{i}"]) != \
+                reweight.content_fingerprint(b):
+            raise RuntimeError(f"the table's fingerprints of batch {i} "
+                               "differ from the cache's")
+    log = io.StringIO()
+    sync()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        final = diffusion_training.main(bank_argv + [
+            "--train_steps", str(REWEIGHTED_STEPS), "--label_isolation_alpha",
+            "0.45", "--label_logit_table", str(table_path), "--init_npz",
+            str(ISO45), "--train_dir", str(uni_dir / "runs"), "--device",
+            str(dev), "--eval_every", str(REWEIGHTED_STEPS), "--ckpt_every",
+            str(REWEIGHTED_STEPS)])
+    sync()
+    reweighted_wall = time.perf_counter() - t0
+    sys.stdout.write(log.getvalue())
+    attached = [ln for ln in log.getvalue().splitlines()
+                if ln.startswith("label logits attached:")]
+    run_dir = Path(final["run_dir"])
+    losses = [json.loads(ln)["loss"] for ln in (
+        run_dir / "train_log.jsonl").read_text().splitlines()
+        if "steps_per_sec" in ln]
+    with np.load(run_dir / "params.npz") as z:
+        meta_rw = json.loads(str(z["__meta__"]))
+    emit(phase="train_reweighted", steps=REWEIGHTED_STEPS, wall_s=reweighted_wall,
+         attached=attached, losses=losses, diag_loss=final["diag_loss"],
+         eval_total_accuracy=final["total_accuracy"],
+         label_isolation_alpha=meta_rw["config"]["label_isolation_alpha"],
+         train_batches=len(bank_batches), measured_batches=FREQ_BATCHES)
+    want = (f"label logits attached: {FREQ_BATCHES}/{len(bank_batches)} "
+            "batches measured")
+    if len(attached) != 1 or not attached[0].startswith(want):
+        raise RuntimeError(f"train_reweighted: {attached}")
+    if not losses or not np.isfinite(losses + [final["diag_loss"]]).all():
+        raise RuntimeError("train_reweighted: non-finite loss")
+    if meta_rw["config"]["label_isolation_alpha"] != 1.0:
+        raise RuntimeError("train_reweighted: the composed logits were not "
+                           "read with isolation_alpha 1.0")
+    shutil.rmtree(uni_dir)
+    return uni_launches
 
 
 def main() -> int:
@@ -169,6 +441,9 @@ def main() -> int:
         make_selfsupervised_train_step,
         make_train_step_for,
         plan_batches,
+    )
+    from diffusionsat_torch.uniformity_benchmark import (
+        gen_benchmark_formulas,
     )
 
     dev = resolve_device("cuda")  # also switches TF32 off
@@ -249,6 +524,12 @@ def main() -> int:
     def segsum_us(kernels):
         return sum(dev_us(e) for e in kernels if "gather_segsum" in e.key)
 
+    def busy_seconds(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+        return sum(dev_us(e) for e in cuda_kernels(prof)) / 1e6
+
 
     # -- phase 2: kernel vs plain at the main path's shapes ----------------
     cfg32 = QuerySATConfig.from_meta(meta["config"], test_rounds=32)
@@ -256,6 +537,11 @@ def main() -> int:
                                       diffusion_steps=32, test_rounds=32,
                                       dense=False, seed=1, device=dev)
     eval_plans = segsum.build_batch_plans(eval_batches[0]).to(dev)
+    # the flat uniformity battery's batch: p24 formula 0, 125 copies
+    (p24_vars, p24_clauses, _), = gen_benchmark_formulas(1)
+    p24_sampler = DiffusionSampler(
+        params, cfg32, CNF(n_vars=p24_vars, clauses=p24_clauses),
+        diffusion_steps=32, test_rounds=32, dense=False, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     F = cfg32.query_maps
@@ -263,7 +549,8 @@ def main() -> int:
     for batch_name, batch, plans in (
             ("primes_3599_x15", primes_sampler.batch, primes_sampler.plans),
             ("threshold3sat_20k", big_batch, big_plans),
-            ("eval_split_batch_0", eval_batches[0].to(dev), eval_plans)):
+            ("eval_split_batch_0", eval_batches[0].to(dev), eval_plans),
+            ("p24_formula_0_x125", p24_sampler.batch, p24_sampler.plans)):
         for plan in (plans.lit_to_clause, plans.clause_to_lit):
             x = torch.randn((plan.num_sources, F), generator=gen, device=dev)
             got = segsum.gather_segsum(x, plan)
@@ -602,12 +889,16 @@ def main() -> int:
     # The flagship's params on the first training batch, with the draws
     # of a training step pinned: the batch's own solutions as labels,
     # noise level 0.5, the noisy input drawn from the labels at that
-    # level, and the per-round noise, over 4 and over 32 rounds. The
-    # kernel path must lie within TRAIN_GRAD_TOL of the plain path. The
-    # plain path, which sums with atomics in no fixed order, differs from
-    # itself between two runs; that spread is printed beside the error.
-    # Both are measured once more with the head losses weighted in head
-    # order instead of sorted by size, to show what the sort adds.
+    # level, and the per-round noise, over 4 and over 32 rounds. The loss
+    # weights each graph's head losses by their rank, so where two heads
+    # of a graph nearly tie, a last-bit difference of the sums swaps their
+    # weights and moves the gradient by a step; the plain path, whose
+    # atomics sum in no fixed order, does that to itself between two runs.
+    # So the gate pins the rank order: a plain run sorts and keeps each
+    # round's order, and the kernel run (and a second plain run, the
+    # spread) weight the heads in that kept order. The kernel path must
+    # lie within TRAIN_GRAD_TOL of the plain path so pinned; the errors
+    # with each run sorting for itself are printed beside it.
     cfg_train = QuerySATConfig.from_meta(meta["config"])
     grad_batch, grad_plans = flat_train[0]
     gen = torch.Generator(device=dev)
@@ -622,10 +913,32 @@ def main() -> int:
     leaves = [p for m in params.values() for k in ("w", "b")
               for p in m[k]]
 
-    def head_order_loss(per_graph_loss, logit_maps):
-        costs = torch.square(torch.arange(
-            1, logit_maps + 1, dtype=torch.float32, device=dev))
-        return torch.sum(per_graph_loss * costs) / torch.sum(costs)
+    class PinnedHeadOrder:
+        """`_head_weighted_loss` with the rank order of a reference run:
+        `record()` sorts as the model does and keeps each round's order,
+        `replay()` weights the heads in the kept order."""
+
+        def __init__(self):
+            self.orders, self.at = [], None
+
+        def record(self):
+            self.orders, self.at = [], None
+
+        def replay(self):
+            self.at = 0
+
+        def __call__(self, per_graph_loss, logit_maps):
+            costs = torch.square(torch.arange(
+                1, logit_maps + 1, dtype=torch.float32, device=dev))
+            if self.at is None:
+                order = torch.argsort(per_graph_loss, dim=-1,
+                                      descending=True)
+                self.orders.append(order)
+            else:
+                order = self.orders[self.at]
+                self.at += 1
+            ranked = torch.gather(per_graph_loss, -1, order)
+            return torch.sum(ranked * costs) / torch.sum(costs)
 
     def loss_and_grads(plans, rounds):
         for p in leaves:
@@ -661,52 +974,51 @@ def main() -> int:
 
     loss_and_grads(grad_plans, 2)        # warm-up
     loss_and_grads(None, 2)
-    k4, p4 = loss_and_grads(grad_plans, 4), loss_and_grads(None, 4)
-    err4, top4 = grad_err(k4, p4)
-    plain_spread4, _ = grad_err(loss_and_grads(None, 4), p4)
-    rp = loss_and_grads(None, cfg_train.train_rounds)
-    rk = loss_and_grads(grad_plans, cfg_train.train_rounds)
-    rp2 = loss_and_grads(None, cfg_train.train_rounds)
-    err32, top32 = grad_err(rk, rp)
-    plain_spread, _ = grad_err(rp2, rp)
+    free, pinned, tops = {}, {}, {}
+    for rounds in (4, cfg_train.train_rounds):
+        rp = loss_and_grads(None, rounds)
+        rk = loss_and_grads(grad_plans, rounds)
+        free[rounds] = (grad_err(rk, rp)[0],
+                        grad_err(loss_and_grads(None, rounds), rp)[0])
+        order = PinnedHeadOrder()
+        sorted_loss = query_sat_module._head_weighted_loss
+        query_sat_module._head_weighted_loss = order
+        try:
+            order.record()
+            ref = loss_and_grads(None, rounds)
+            order.replay()
+            pk = loss_and_grads(grad_plans, rounds)
+            order.replay()
+            pp = loss_and_grads(None, rounds)
+        finally:
+            query_sat_module._head_weighted_loss = sorted_loss
+        err, tops[rounds] = grad_err(pk, ref)
+        pinned[rounds] = (err, grad_err(pp, ref)[0])
+        for a, b in ((rk, rp), (pk, ref), (pp, ref)):
+            if abs(a["loss"] - b["loss"]) > TRAIN_LOSS_RTOL * abs(b["loss"]) \
+                    or a["steps"] != b["steps"]:
+                raise RuntimeError(f"{rounds}-round training loss differs "
+                                   "between the kernel and the plain path")
+        del ref, pk, pp, order
     per_step = {d: rk["forward_launches"][d] + rk["backward_launches"][d]
                 for d in rk["forward_launches"]}
-    sorted_loss = query_sat_module._head_weighted_loss
-    query_sat_module._head_weighted_loss = head_order_loss
-    try:
-        up = loss_and_grads(None, cfg_train.train_rounds)
-        err32_unsorted, _ = grad_err(
-            loss_and_grads(grad_plans, cfg_train.train_rounds), up)
-        spread_unsorted, _ = grad_err(
-            loss_and_grads(None, cfg_train.train_rounds), up)
-    finally:
-        query_sat_module._head_weighted_loss = sorted_loss
-    del up
     emit(phase="train_grads_flat", rounds=cfg_train.train_rounds,
-         tensors=len(leaves), loss_kernel=rk["loss"],
-         loss_plain=rp["loss"], loss_plain_again=rp2["loss"],
-         steps=rk["steps"], grad_err_4_rounds=err4,
-         plain_against_itself_4_rounds=plain_spread4,
-         loss_4_rounds=[k4["loss"], p4["loss"]],
-         largest_gradient_4_rounds=top4, grad_err_32_rounds=err32,
-         plain_against_itself_32_rounds=plain_spread,
-         largest_gradient_32_rounds=top32, tolerance=TRAIN_GRAD_TOL,
-         grad_err_32_rounds_heads_unsorted=err32_unsorted,
-         plain_against_itself_32_rounds_heads_unsorted=spread_unsorted,
+         tensors=len(leaves), loss_kernel=rk["loss"], loss_plain=rp["loss"],
+         steps=rk["steps"], tolerance=TRAIN_GRAD_TOL,
+         **{f"{kind}_{r}_rounds": dict(kernel_against_plain=v[0],
+                                       plain_against_itself=v[1])
+            for kind, errs in (("head_order_pinned", pinned),
+                               ("head_order_free", free))
+            for r, v in errs.items()},
+         largest_gradient={r: t for r, t in tops.items()},
          forward_launches=rk["forward_launches"],
          backward_launches=rk["backward_launches"],
          launches_per_step=per_step,
          predicted_per_step=LAUNCHES_PER_TRAIN_STEP,
          plain_path_launches=rp["forward_launches"],
-         forward_s={"kernel": rk["forward_s"], "plain": rp2["forward_s"]},
-         backward_s={"kernel": rk["backward_s"],
-                     "plain": rp2["backward_s"]})
-    for a, b in ((k4, p4), (rk, rp)):
-        if abs(a["loss"] - b["loss"]) > TRAIN_LOSS_RTOL * abs(b["loss"]) \
-                or a["steps"] != b["steps"]:
-            raise RuntimeError("training loss differs between the "
-                               "kernel and the plain path")
-    for rounds, err in ((4, err4), (32, err32)):
+         forward_s={"kernel": rk["forward_s"], "plain": rp["forward_s"]},
+         backward_s={"kernel": rk["backward_s"], "plain": rp["backward_s"]})
+    for rounds, (err, _) in pinned.items():
         if err > TRAIN_GRAD_TOL:
             raise RuntimeError(
                 f"{rounds}-round training gradients differ: {err}")
@@ -719,7 +1031,7 @@ def main() -> int:
                 rk["backward_launches"][d] <= 0:
             raise RuntimeError(f"train step launches ({d}): {n}")
     launches_of["per_step"] = per_step
-    del k4, p4, rk, rp, rp2
+    del rk, rp
 
     # -- optimizer steps from a seeded init --------------------------
     def fresh_state(cfg_model):
@@ -821,7 +1133,7 @@ def main() -> int:
                    str(train_dir), "--device", str(dev), "--ckpt_every",
                    "50"]
     script_launches = {"lit_to_clause": 0, "clause_to_lit": 0}
-    for layout, n_steps in (("dense", 100), ("flat", 50)):
+    for layout, n_steps in (("dense", 50), ("flat", 50)):
         argv_l = common_argv + [
             "--dense", "true" if layout == "dense" else "false",
             "--label", f"smoke_{layout}", "--eval_every", str(n_steps)]
@@ -944,6 +1256,9 @@ def main() -> int:
             profile_train_step(name, layout, bf16)
     train_launches = launches_of
 
+    uni_launches = uniformity_phase(dev, data_dir, sync, busy_seconds)
+
+
     # one row per kernel: times at the sampler's shapes, launches of the
     # sampler run; the solving eval's and the training paths' launches and
     # the times at the eval batch's and the 20k training batch's shapes ride
@@ -959,6 +1274,8 @@ def main() -> int:
                     launches_train_flat=train_launches["train_flat_kernel"][d],
                     launches_train_script=train_launches["train_script"][d],
                     launches_per_train_step=train_launches["per_step"][d],
+                    launches_uniformity_flat=uni_launches[d],
+                    uniformity_shapes=kernel_rows["p24_formula_0_x125"][d],
                     train_shapes=kernel_rows["threshold3sat_20k"][d])
                for d, r in kernel_rows["primes_3599_x15"].items()]
     print(json.dumps({"kernels": kernels}), flush=True)

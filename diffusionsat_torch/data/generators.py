@@ -8,11 +8,13 @@ packages generate the same instances.
 - `SAT3Instances`: random 3-SAT at the satisfiability threshold
   m = 4.258 n + 58.26 n^(-2/3), rejection-sampled for SAT, each instance
   with the solver's model attached.
-- `DiffusionSatInstances`: wraps a generator and attaches one solution per
-  instance. A solution the base generator attached is kept; a missing one
-  is a CDCL model (`use_unigen=False`). Uniform solution sampling, the
-  multi-label bank (`n_label_samples > 1`) and the fixed-formula test mode
-  (`test_cnf`) are not ported yet.
+- `DiffusionSatInstances`: wraps a generator and attaches a solution per
+  instance: the base generator's, a uniform sample (`use_unigen=True`) or a
+  CDCL model, or a bank of K uniform samples (`n_label_samples > 1`); in
+  test mode it can repeat one fixed formula (`test_cnf`).
+
+The NeuroSAT-style `KSatInstances` is not ported yet (ROADMAP Queue 1,
+item 12).
 """
 
 from __future__ import annotations
@@ -24,13 +26,13 @@ from typing import Iterator
 import numpy as np
 
 from diffusionsat_torch.sat import cnf as cnf_mod
-from diffusionsat_torch.sat.solvers import solve
+from diffusionsat_torch.sat.solvers import (
+    UniformSampler,
+    enumerate_models,
+    solve,
+)
 
 Instance = tuple[int, list[list[int]], list[int] | None]
-
-_UNIFORM_NOT_PORTED = (
-    "uniform solution sampling ({what}) needs the model enumerator and the "
-    "XOR-hash sampler; it waits for the ROADMAP Queue 1 item 12 'Host code'")
 
 
 class SatInstances(ABC):
@@ -105,12 +107,16 @@ class SAT3Instances(SatInstances):
 
 
 class DiffusionSatInstances(SatInstances):
-    """Attach a solution per instance.
+    """Attach a (uniform) solution sample per instance.
 
-    The constructor keeps the TPU package's arguments. Ported: one label
-    per instance (`n_label_samples == 1`), taken from the base generator
-    where it attaches one (the 3-SAT path) and from the CDCL solver
-    otherwise (`use_unigen=False`).
+    `use_unigen=True`: uniform over all models (exact enumeration, XOR-hash
+    cells over the budget); False: a CDCL model. In test mode a fixed
+    formula (`test_cnf`) is repeated `n_solutions * k` times, each copy with
+    an independently drawn uniform label.
+
+    `n_label_samples` > 1 attaches K independent uniform samples per
+    instance (a [K, n_vars] bit list), drawn by a `UniformSampler` seeded
+    `seed + idx`; the train step then draws its target row per step.
     """
 
     def __init__(self, base: SatInstances, use_unigen: bool = True,
@@ -121,12 +127,6 @@ class DiffusionSatInstances(SatInstances):
         if n_label_samples > 1 and not use_unigen:
             raise ValueError("n_label_samples > 1 requires use_unigen=True "
                              "(multi-label banks must be uniform samples)")
-        if n_label_samples > 1:
-            raise NotImplementedError(_UNIFORM_NOT_PORTED.format(
-                what="n_label_samples > 1"))
-        if test_cnf is not None:
-            raise NotImplementedError(_UNIFORM_NOT_PORTED.format(
-                what="test_cnf"))
         self.base = base
         self.use_unigen = use_unigen
         self.test_cnf = test_cnf
@@ -137,10 +137,18 @@ class DiffusionSatInstances(SatInstances):
 
     def _solution_for(self, n_vars: int, clauses: list[list[int]],
                       idx: int):
+        """One solution (list) or, for K > 1, a K-row bank (list of lists);
+        None when the formula is UNSAT."""
         if self.use_unigen:
-            raise NotImplementedError(_UNIFORM_NOT_PORTED.format(
-                what="use_unigen=True on a generator that attaches no "
-                     "solution"))
+            sampler = UniformSampler(max_enumerate=self.max_enumerate,
+                                     seed=self.seed + idx)
+            dimacs = cnf_mod.CNF(n_vars=n_vars, clauses=clauses).to_string()
+            K = self.n_label_samples
+            is_sat, samples = sampler.multiple_samples(dimacs, K)
+            if not is_sat:
+                return None
+            bits = [[1 if l > 0 else 0 for l in s] for s in samples]
+            return bits if K > 1 else bits[0]
         is_sat, model = solve(clauses, n_vars, seed=self.seed + idx)
         if not is_sat:
             return None
@@ -148,7 +156,9 @@ class DiffusionSatInstances(SatInstances):
 
     def _wrap(self, gen):
         for idx, (n_vars, clauses, solution) in enumerate(gen):
-            if solution is None:
+            # a base-attached solution is one model; a K-row bank needs K
+            # uniform draws, so it is drawn regardless
+            if solution is None or self.n_label_samples > 1:
                 solution = self._solution_for(n_vars, clauses, idx)
                 if solution is None:
                     raise ValueError("UNSAT instance in diffusion data")
@@ -159,7 +169,7 @@ class DiffusionSatInstances(SatInstances):
         if base_shards is None:
             return None
         return [DiffusionSatInstances(
-            b, use_unigen=self.use_unigen,
+            b, use_unigen=self.use_unigen, test_cnf=self.test_cnf,
             test_solutions_multiplier_k=self.k,
             max_enumerate=self.max_enumerate,
             seed=self.seed + 104729 * (i + 1),
@@ -170,4 +180,21 @@ class DiffusionSatInstances(SatInstances):
         return self._wrap(self.base.train_generator())
 
     def test_generator(self):
+        if self.test_cnf is not None:
+            return self._repeat_test_cnf()
         return self._wrap(self.base.test_generator())
+
+    def _repeat_test_cnf(self):
+        """The fixed formula n_solutions * k times, each copy with an
+        independently drawn uniform solution label."""
+        clauses = self.test_cnf.clauses()
+        n_vars = self.test_cnf.number_of_vars()
+        models, _ = enumerate_models(clauses, n_vars,
+                                     max_models=self.max_enumerate,
+                                     seed=self.seed)
+        n_solutions = max(len(models), 1)
+        rng = np.random.default_rng(self.seed)
+        for _ in range(n_solutions * self.k):
+            row = models[rng.integers(0, len(models))] if len(models) \
+                else None
+            yield n_vars, clauses, None if row is None else row.tolist()

@@ -35,7 +35,11 @@ import numpy as np
 import torch
 
 from diffusionsat_torch.config import RunConfig, parse_config
-from diffusionsat_torch.data.datasets import PackedBatches, SatDataset
+from diffusionsat_torch.data.datasets import (
+    PackedBatches,
+    SatDataset,
+    diffusion_3sat_name,
+)
 from diffusionsat_torch.data.generators import (
     DiffusionSatInstances,
     SAT3Instances,
@@ -66,6 +70,7 @@ from diffusionsat_torch.train.checkpoint import (
     export_params,
     load_params,
     params_from_numpy,
+    params_like,
 )
 from diffusionsat_torch.train.loop import (
     TrainState,
@@ -79,6 +84,7 @@ from diffusionsat_torch.train.loop import (
 )
 from diffusionsat_torch.train.metrics import SATAccuracy, StepStatistics
 from diffusionsat_torch.train.tb import TBWriter
+from diffusionsat_torch.uniformity.reweight import attach_logit_table
 
 
 def _check_ported(cfg: RunConfig) -> None:
@@ -86,10 +92,6 @@ def _check_ported(cfg: RunConfig) -> None:
         raise NotImplementedError(
             "KSatInstances (--use_hard_3sat false) waits for the ROADMAP "
             "Queue 1 item 12 'Host code'")
-    if cfg.label_logit_table:
-        raise NotImplementedError(
-            "--label_logit_table waits for the ROADMAP Queue 1 item 6 "
-            "'Uniformity tooling'")
     if cfg.n_devices > 1:
         raise NotImplementedError(
             "--n_devices > 1 waits for the ROADMAP Queue 1 item 11 "
@@ -116,9 +118,8 @@ def build_dataset(cfg: RunConfig) -> SatDataset:
                                       seed=cfg.seed,
                                       n_label_samples=cfg.label_samples)
     bucket = BucketSpec.for_node_budget(cfg.max_nodes_per_batch)
-    name = f"diffusion_3sat_{cfg.min_vars}_{cfg.max_vars}_{cfg.train_size}"
-    if cfg.label_samples > 1:  # multi-label cache is a different schema
-        name += f"_k{cfg.label_samples}"
+    name = diffusion_3sat_name(cfg.min_vars, cfg.max_vars, cfg.train_size,
+                               cfg.label_samples)
     return SatDataset(instances, bucket, cache_dir=cfg.data_dir, name=name,
                       force_data_gen=cfg.force_data_gen, seed=cfg.seed,
                       gen_workers=cfg.gen_workers or None)
@@ -186,7 +187,24 @@ def _run(cfg: RunConfig, dev: torch.device) -> dict:
         train_data.batches = train_data.batches[:cfg.train_batch_limit]
         print(f"train batches limited to first {len(train_data)}",
               flush=True)
-    if cfg.label_isolation_alpha != 0.0:
+    if cfg.label_logit_table:
+        # closed-loop per-solution reweighting: alpha * isolation + beta *
+        # (-log freq_hat) from a measured table, in the per-row logit
+        # channel that the step reads with isolation_alpha = 1.0
+        if cfg.label_samples <= 1:
+            raise SystemExit("--label_logit_table requires a "
+                             "multi-label bank (--label_samples > 1)")
+        with np.load(cfg.label_logit_table) as z:
+            table = dict(z)
+        n_meas = attach_logit_table(train_data.batches, table,
+                                    cfg.label_isolation_alpha,
+                                    cfg.label_reweight_beta)
+        model_cfg = dataclasses.replace(model_cfg,
+                                        label_isolation_alpha=1.0)
+        print(f"label logits attached: {n_meas}/{len(train_data)} batches "
+              f"measured (alpha={cfg.label_isolation_alpha}, "
+              f"beta={cfg.label_reweight_beta})", flush=True)
+    elif cfg.label_isolation_alpha != 0.0:
         if cfg.label_samples <= 1:
             raise SystemExit("--label_isolation_alpha requires a "
                              "multi-label bank (--label_samples > 1)")
@@ -215,7 +233,8 @@ def _run(cfg: RunConfig, dev: torch.device) -> dict:
         print(f"Restored from step {state.step}")
     elif cfg.init_npz:
         warm, meta = load_params(cfg.init_npz)
-        state = state.replace(params=params_from_numpy(warm, dev))
+        state = state.replace(params=params_like(
+            params, params_from_numpy(warm, dev)))
         print(f"Warm-started params from {cfg.init_npz} (meta: {meta})",
               flush=True)
 

@@ -7,7 +7,9 @@ Counterpart of the TPU package's root `diffusion_sampler.py`. It reads
 `.npz` params files only and runs on the card (or on the CPU with
 `--device cpu`). The sampler picks the layout itself: the dense block chain
 for a formula of at most 128 variables and 576 clauses, the flat chain with
-the segsum kernel above that.
+the segsum kernel above that. `--refine mh` runs a Metropolis chain over
+the solution set from every sample on the host (`uniformity/samplers.py`
+`MetropolisRefiner`).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import json
 
 from diffusionsat_torch.diffusion.sampler import DiffusionSampler
 from diffusionsat_torch.models.query_sat import QuerySATConfig
+from diffusionsat_torch.uniformity.samplers import MetropolisRefiner
 
 
 def main(argv=None):
@@ -39,11 +42,12 @@ def main(argv=None):
                         "satisfies, 'late' = freeze only in the last "
                         "quarter of the chain, 'off' = never freeze")
     p.add_argument("--refine", choices=["off", "mh"], default="off",
-                   help="'mh' (Metropolis refinement) is not ported yet")
+                   help="'mh' = Metropolis refinement over the solution set "
+                        "(uniform stationary distribution per connected "
+                        "component)")
+    p.add_argument("--mh_steps", type=int, default=None,
+                   help="MH chain length (default 20 * n_vars)")
     args = p.parse_args(argv)
-    if args.refine == "mh":
-        raise NotImplementedError(
-            "--refine mh waits for the ROADMAP item 'Uniformity tooling'")
     if not args.model_ckpt.endswith(".npz"):
         p.error("--model_ckpt must be an .npz params file")
 
@@ -60,6 +64,9 @@ def main(argv=None):
     print(f"running the {'dense' if sampler.dense else 'flat'} reverse "
           f"chain ({sampler.graphs_per_batch} copies a batch)")
     counts = sampler.samples(args.n_samples)
+    if args.refine == "mh":
+        counts = MetropolisRefiner(sampler.cnf, None,
+                                   n_steps=args.mh_steps).refine(counts)
     print(f"success rate: {sampler.success_rate:.4f}")
     print(f"{len(counts)} distinct solutions over "
           f"{sum(counts.values())} SAT samples")

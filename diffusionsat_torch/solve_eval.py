@@ -25,7 +25,7 @@ import time
 
 import torch
 
-from diffusionsat_torch.data.datasets import SatDataset
+from diffusionsat_torch.data.datasets import SatDataset, diffusion_3sat_name
 from diffusionsat_torch.data.generators import (
     DiffusionSatInstances,
     SAT3Instances,
@@ -48,15 +48,18 @@ MAX_NODES_PER_BATCH = 20_000
 
 def build_dataset(train_size: int, test_size: int, min_vars: int,
                   max_vars: int, seed: int, data_dir: str = "data_cache",
-                  gen_workers: int | None = None) -> SatDataset:
+                  gen_workers: int | None = None,
+                  label_samples: int = 1) -> SatDataset:
     """The threshold 3-SAT dataset of the training runs, under the cache
-    name the TPU package's training script gives it."""
+    name the TPU package's training script gives it (with `_k{K}` for a
+    K-row label bank)."""
     base = SAT3Instances(min_vars=min_vars, max_vars=max_vars,
                          train_size=train_size, test_size=test_size,
                          seed=seed)
-    instances = DiffusionSatInstances(base, seed=seed)
+    instances = DiffusionSatInstances(base, seed=seed,
+                                      n_label_samples=label_samples)
     bucket = BucketSpec.for_node_budget(MAX_NODES_PER_BATCH)
-    name = f"diffusion_3sat_{min_vars}_{max_vars}_{train_size}"
+    name = diffusion_3sat_name(min_vars, max_vars, train_size, label_samples)
     return SatDataset(instances, bucket, cache_dir=data_dir, name=name,
                       seed=seed, gen_workers=gen_workers)
 
@@ -90,15 +93,14 @@ def main(argv=None):
                         "(default: the host's cores); the split does not "
                         "depend on it")
     args = p.parse_args(argv)
-    if args.label_samples != 1:
-        raise NotImplementedError(
-            "multi-label caches (--label_samples > 1) wait for the ROADMAP "
-            "Queue 1 item 12 'Host code'")
+    if args.label_samples < 1:
+        p.error("--label_samples must be at least 1")
     dev = resolve_device(args.device)
 
     test_data = build_dataset(args.train_size, args.test_size, args.min_vars,
                               args.max_vars, args.seed, args.data_dir,
-                              args.gen_workers).test_data()
+                              args.gen_workers,
+                              args.label_samples).test_data()
     print(f"test batches: {len(test_data)}", flush=True)
 
     model_cfg = QuerySATConfig(test_rounds=args.test_rounds)

@@ -106,6 +106,42 @@ def params_from_numpy(tree: Any, device: str | torch.device = "cuda") -> Any:
     return conv(tree)
 
 
+def params_like(template: Any, tree: Any) -> Any:
+    """`tree` with the dict order of `template`, the same keys and leaf
+    shapes checked. A params file lists its modules in its writer's order
+    (sorted, when the TPU package wrote it), and the optimizer pairs
+    params with its state by position, so warm-started params must take
+    the order of the params the state was made for."""
+    if isinstance(template, dict):
+        if not isinstance(tree, dict) or set(tree) != set(template):
+            raise ValueError(f"params keys {sorted(tree)} differ from "
+                             f"{sorted(template)}")
+        return {k: params_like(template[k], tree[k]) for k in template}
+    if isinstance(template, (list, tuple)):
+        if len(tree) != len(template):
+            raise ValueError("params lists differ in length")
+        return [params_like(a, b) for a, b in zip(template, tree)]
+    if tuple(template.shape) != tuple(tree.shape):
+        raise ValueError(f"params shape {tuple(tree.shape)} differs from "
+                         f"{tuple(template.shape)}")
+    return tree
+
+
+def load_model(path: str | Path, device: str | torch.device = "cuda",
+               **cfg_kw) -> tuple[Any, Any]:
+    """`(params on device, QuerySATConfig)` of an `.npz` params file: the
+    config takes the widths the file's metadata records (the default
+    widths where it records none) and `cfg_kw` for the rest."""
+    from diffusionsat_torch.models.query_sat import QuerySATConfig
+
+    tree, meta = load_params(path)
+    recorded = meta.get("config", {})
+    widths = {k: recorded[k] for k in ("feature_maps", "query_maps",
+                                       "logit_maps") if k in recorded}
+    return params_from_numpy(tree, device), QuerySATConfig(**widths,
+                                                           **cfg_kw)
+
+
 def params_to_numpy(tree: Any) -> Any:
     """The inverse of `params_from_numpy`: torch leaves to numpy arrays."""
     if isinstance(tree, dict):

@@ -85,10 +85,14 @@ def test_missing_labels_come_from_the_solver_or_raise():
     want = list(jgen.DiffusionSatInstances(
         _JNoLabels(), use_unigen=False, seed=3).train_generator())
     assert got == want and got[0][2] is not None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        list(tgen.DiffusionSatInstances(_NoLabels()).train_generator())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tgen.DiffusionSatInstances(_NoLabels(), n_label_samples=4)
+    # uniform labels (the default) and K-row banks: the TPU package's draws
+    for kw in ({}, {"n_label_samples": 4}):
+        got = list(tgen.DiffusionSatInstances(_NoLabels(), seed=3, **kw)
+                   .train_generator())
+        want = list(jgen.DiffusionSatInstances(_JNoLabels(), seed=3, **kw)
+                    .train_generator())
+        assert got == want and check_assignment(
+            got[0][1], got[0][2][0] if kw else got[0][2])
     with pytest.raises(ValueError, match="use_unigen"):
         tgen.DiffusionSatInstances(_NoLabels(), use_unigen=False,
                                    n_label_samples=4)

@@ -77,7 +77,10 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
     from diffusionsat_torch.models.query_sat_dense import (
         query_sat_dense_apply,
     )
+    from diffusionsat_torch.diffusion_evaluation import main as de_main
+    from diffusionsat_torch.measure_bank_freq import main as freq_main
     from diffusionsat_torch.solve_eval import main as eval_main
+    from diffusionsat_torch.uniformity_benchmark import main as battery_main
     from diffusionsat_torch.train.adabelief import adabelief
     from diffusionsat_torch.train.checkpoint import opt_state_from_numpy
     from diffusionsat_torch.train.loop import (
@@ -125,7 +128,16 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
             lambda: plan_batches([batch]),
             lambda: evaluate_metrics(params, cfg, [batch], [], None),
             lambda: eval_main(["--model_ckpt", ckpt, "--data_dir",
-                               str(tmp_path)])):
+                               str(tmp_path)]),
+            lambda: battery_main(["--model_ckpt", ckpt, "--n_formulas", "1",
+                                  "--out", str(tmp_path / "b.jsonl")]),
+            lambda: de_main(["--dimacs", str(ASSETS / "satlib" /
+                                             "uf20-synth-1.cnf"),
+                             "--model_ckpt", ckpt, "--benchmarks_file",
+                             str(tmp_path / "b.jsonl")]),
+            lambda: freq_main(["--model_ckpt", ckpt, "--data_dir",
+                               str(tmp_path), "--out",
+                               str(tmp_path / "f.npz")])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert not list(tmp_path.iterdir())    # refused before any data work

@@ -314,7 +314,16 @@ def test_cli_samples_on_cpu(tmp_path, capsys):
         asgn = VariableAssignment(20, cnf.clauses())
         asgn.assign_all_from_int(int(sol))
         assert asgn.satisfiable()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsample.main(["--dimacs", f"{ASSETS}/satlib/uf20-synth-2.cnf",
-                      "--model_ckpt", MLK64, "--refine", "mh",
-                      "--device", "cpu"])
+    # Metropolis refinement: the same number of samples, each still a model
+    refined = tmp_path / "refined.json"
+    tsample.main(["--dimacs", f"{ASSETS}/satlib/uf20-synth-2.cnf",
+                  "--model_ckpt", MLK64, "--n_samples", "5",
+                  "--diffusion_steps", "2", "--test_rounds", "2",
+                  "--refine", "mh", "--mh_steps", "50", "--device", "cpu",
+                  "--out", str(refined)])
+    after = json.loads(refined.read_text())
+    assert sum(after.values()) == sum(counts.values())
+    for sol in after:
+        asgn = VariableAssignment(20, cnf.clauses())
+        asgn.assign_all_from_int(int(sol))
+        assert asgn.satisfiable()

@@ -47,10 +47,10 @@ def test_defaults_equal_the_tpu_packages_field_by_field():
     (["--model", "neuro_sat"], "item 9"),
     (["--task", "k-sat"], "item 9"),
     (["--use_hard_3sat", "false"], "item 12"),
-    (["--label_logit_table", "t.npz"], "item 6"),
+    (["--model", "attention_sat"], "item 9"),
     (["--n_devices", "2"], "item 11"),
     (["--mega_steps", "8"], "item 5"),
-    (["--label_samples", "4"], "item 12"),
+    (["--label_samples", "4", "--use_hard_3sat", "false"], "item 12"),
 ])
 def test_unported_options_raise_naming_their_item(argv, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
@@ -198,3 +198,43 @@ def test_training_script_hybrid_dispatch_and_dense_fallback(tmp_path, monkeypatc
     assert "dense layout unavailable (no batch fits the dense block " \
         "tables); flat path" in out
     assert np.isfinite(final["diag_loss"])
+
+
+def test_warm_start_from_a_file_the_tpu_package_wrote(tmp_path, monkeypatch):
+    """The repo's pretrained files list their modules sorted, not in the
+    init's order; the optimizer state pairs leaves with params by position,
+    so the warm params must take the init's order (before, the first step
+    raised on a shape mismatch, or paired equal shapes wrongly)."""
+    import jax
+
+    from diffusionsat_tpu.models import query_sat as jqs
+
+    monkeypatch.setattr(dense_ops, "INCIDENCE_PRECISION", "highest")
+    jcfg = jqs.QuerySATConfig(feature_maps=16, query_maps=8, logit_maps=4)
+    warm_file = tmp_path / "tpu.npz"
+    jtree = jqs.query_sat_init(jax.random.key(3), jcfg)
+    jckpt.export_params(dict(sorted(jtree.items())), warm_file)
+    assert list(tckpt.load_params(
+        "pretrained/query_sat_3sat_diffusion_mlk64_iso45.npz")[0]) == \
+        sorted(jtree)
+    warm, _ = tckpt.load_params(warm_file)
+    from diffusionsat_torch.models import query_sat as tqs
+    init = tqs.query_sat_init(torch.Generator().manual_seed(0),
+                              tqs.QuerySATConfig(feature_maps=16,
+                                                 query_maps=8, logit_maps=4))
+    assert list(warm) != list(init)          # another module order
+    final = diffusion_training.main(
+        TINY + ["--data_dir", str(tmp_path / "dc"), "--train_dir",
+                str(tmp_path / "runs"), "--init_npz", str(warm_file),
+                "--train_steps", "2"])
+    assert np.isfinite(final["diag_loss"])
+    got, _ = tckpt.load_params(Path(final["run_dir"]) / "params.npz")
+    for m in warm:   # two small steps away from the warm params
+        for a, b in zip(got[m]["w"], warm[m]["w"]):
+            assert np.abs(a - b).max() < 0.02, m
+    reordered = tckpt.params_like(init, tckpt.params_from_numpy(warm, "cpu"))
+    assert list(reordered) == list(init)
+    with pytest.raises(ValueError, match="shape"):
+        tckpt.params_like(init, {m: {k: [x[:1] for x in v]
+                                     for k, v in mod.items()}
+                                 for m, mod in reordered.items()})
