@@ -41,7 +41,7 @@ Phases, each of which raises (exit code 1) on failure:
    params through the kernel against the plain path (loss, all 24 gradient
    tensors over 4 and over 32 rounds, printed beside the plain path's own
    run-to-run spread and beside both with the head losses left unsorted;
-   launches per step against the reckoned 128 each way); 80 optimizer
+   launches per step against the reckoned 128 each way); 64 optimizer
    steps each of the dense f32, the dense block-bf16 and the flat kernel
    step from a seeded init (the mean loss of the last fifth must lie below
    0.9 of the first fifth's; steps per second; peak memory; the flat step
@@ -61,13 +61,33 @@ Phases, each of which raises (exit code 1) on failure:
    find every solution and have a smaller mean entropy gap than
    diffusion_nofreeze; a cut k64 training set (2000 instances where a real
    run takes 60 000: data quantity only); `python -m
-   diffusionsat_torch.measure_bank_freq` on its first 2 batches with 8
+   diffusionsat_torch.measure_bank_freq` on its first 2 batches with 4
    chains each, whose SAT and outside-the-bank rates must lie in the
    window the repo's table (`freq_iso45full.npz`) reads for batches of the
    same formula sizes; and 20 dense steps of `python -m
    diffusionsat_torch.diffusion_training` with `--label_samples 64
    --label_isolation_alpha 0.45` and that table, warm-started from the
    flagship (2 batches measured, the rest isolation-only, finite loss).
+8. ANF (a main path), with the SHA-1 flagship `anf_sat_sha1_r17_130k.npz`
+   at full width (128 / 128 maps): the 17-round test split of `python -m
+   diffusionsat_torch.anf_eval`'s defaults (256 systems, 2-20 free bits)
+   and a cut training split (64 systems where the training script takes
+   2000: data quantity only); the kernel on the ANF plans of test batch 0
+   (node -> clause, clause -> node, the AND scatter and its transpose) at
+   F = 64 and 128 against its plain version, timed as in phase 2; the
+   tiled pair (f32 and bf16 operands) against the kernel route on the same
+   batch; `anf_eval` in-process, 32 rounds, flat through the kernel, whose
+   per-variable accuracy and systems solved must lie within 0.01 and 0.06
+   of the record `ANF_EVAL_130K.json` and whose launches must equal the
+   count reckoned from the code; 20 tiled and 20 flat train steps (16
+   rounds) from one seeded init, whose first losses at f32 tiles agree to
+   1e-4 and whose losses on a fixed batch must fall, the flat steps'
+   launches as reckoned; `python -m diffusionsat_torch.anf_training`
+   in-process with eval, a checkpoint and a restore; anchored CDCL
+   completion of the first 8 systems; and profiles of an eval round and
+   of a train step in each layout.
+
+`python3 chip_smoke.py --only-anf` builds and runs phase 8 alone.
 
 Every line of standard output is one JSON object, except the card line of
 `nvidia-smi` and the lines that the entry points run in-process print
@@ -123,9 +143,9 @@ SOLVED_FRACTION_TOL = 0.05
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL = 1e-2
 # training: the mean loss of the last fifth of the steps against the first
-# (150 steps until the uniformity phase joined the run; cut to keep the
-# script well inside its time limit on a slow host)
-TRAIN_STEPS = 80
+# (150 steps until the uniformity phase joined the run and 80 until the ANF
+# phase did; cut to keep the script inside its time limit on a slow host)
+TRAIN_STEPS = 64
 LOSS_FALL_FACTOR = 0.9
 # launches of each direction in one 32-round flat train step: 2 a round
 # forward, and 2 a round as the backward of the other direction
@@ -144,13 +164,29 @@ UNIFORMITY_K = 10
 BANK_TRAIN_SIZE = 2000
 BANK_K = 64
 FREQ_BATCHES = 2
-FREQ_CHAINS = 8
+# 8 chains a batch until the ANF phase joined the run
+FREQ_CHAINS = 4
 # the measured rates must lie within this margin of the range the repo's
 # table reads over its batches of similar graph counts (+-10 graphs a
 # batch: a 20 000-node batch holds fewer graphs the larger its formulas)
 FREQ_RATE_MARGIN = 0.02
 FREQ_SIMILAR_GRAPHS = 10
 REWEIGHTED_STEPS = 20
+# the ANF phase: the flagship of the repo's ANF pass mark, read against
+# ANF_EVAL_130K.json (accuracy 0.9114 over about 1M variables; systems
+# solved 0.1367 over 256 systems, binomial standard error 0.021, so a
+# window of about 3 standard errors)
+ANF_CKPT = ROOT / "pretrained" / "anf_sat_sha1_r17_130k.npz"
+ANF_PASS_MARK = {"accuracy": (0.9114, 0.01), "total_accuracy": (0.1367, 0.06)}
+# the cut training split (the training script's default is 2000 systems:
+# data quantity, not width or depth), its test split for the in-process
+# script, the steps of each training layout and the first-loss tolerance
+# between the tiled (f32 tiles) and the flat step
+ANF_TRAIN_SIZE = 64
+ANF_SCRIPT_TEST_SIZE = 8
+ANF_TRAIN_STEPS = 20
+ANF_FIRST_LOSS_RTOL = 1e-4
+ANF_COMPLETION_SYSTEMS = 8
 
 
 def emit(**obj):
@@ -388,8 +424,461 @@ def uniformity_phase(dev, data_dir: Path, sync, busy_seconds) -> dict:
     return uni_launches
 
 
-def main() -> int:
+def anf_phase(dev, data_dir: Path, tools: dict) -> dict:
+    """Phase 8: the ANF path. The 17-round SHA-1 test split and a cut
+    training split; the segsum kernel on ANF plans against its plain
+    version; the tiled pair against the kernel route; the flagship's eval
+    against its pass mark with the launches reckoned from the code; tiled
+    and flat training (first losses equal at f32 tiles, both losses fall,
+    the flat steps' launches as reckoned) and the training script in-process
+    with eval, a checkpoint and a restore; anchored CDCL completion; and
+    profiles of an eval round and of a train step in each layout. Returns
+    the kernels line's ANF rows."""
+    import argparse
+
+    import numpy as np
     import torch
+
+    from diffusionsat_torch import anf_eval, anf_training
+    from diffusionsat_torch.models.anf_sat import (
+        ANFSATConfig,
+        anf_sat_apply,
+        anf_sat_init,
+    )
+    from diffusionsat_torch.ops import segsum, tiled_ops
+    from diffusionsat_torch.sat.anf_completion import (
+        extract_graph_equations,
+        input_anchored_complete,
+    )
+    from diffusionsat_torch.train.adabelief import adabelief
+    from diffusionsat_torch.train.checkpoint import restore_model_params
+    from diffusionsat_torch.train.loop import (
+        TrainState,
+        make_planned_train_step_for,
+        plan_batches,
+    )
+
+    sync, device_ms = tools["sync"], tools["device_ms"]
+    cuda_kernels, dev_us = tools["cuda_kernels"], tools["dev_us"]
+
+    def seeded(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    def data_args(*argv):
+        p = argparse.ArgumentParser()
+        anf_eval.add_data_args(p, train_size=8000, test_size=256)
+        return p.parse_args(["--data_dir", str(data_dir), *argv])
+
+    def profiled(fn, reps=3):
+        walls = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            walls.append(time.perf_counter() - t0)
+        with tools["profile"](activities=tools["activities"]) as prof:
+            fn()
+            sync()
+        kernels = cuda_kernels(prof)
+        busy = sum(dev_us(e) for e in kernels) / 1e3
+        top = sorted(kernels, key=dev_us, reverse=True)[:8]
+        return min(walls) * 1e3, busy, kernels, top
+
+    def shape_of(b):
+        return dict(V=b.V, A=b.A, C=b.C, E=b.E, G=b.G,
+                    systems=int(b.n_graphs), vars=int(b.n_vars),
+                    clauses=int(b.n_clauses), ands=int(b.and_mask.sum()),
+                    edges=int(b.edge_mask_c.sum()))
+
+    # -- the splits: the eval's (anf_eval's defaults) and a cut training set
+    t0 = time.perf_counter()
+    test_batches = anf_eval.build_anf_dataset(data_args()).test_data()
+    test_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_ds = anf_eval.build_anf_dataset(data_args(
+        "--train_size", str(ANF_TRAIN_SIZE), "--test_size",
+        str(ANF_SCRIPT_TEST_SIZE)))
+    train_batches = train_ds.train_data()
+    train_s = time.perf_counter() - t0
+    edges = [int(b.edge_mask_c.sum()) for b in test_batches]
+    emit(phase="anf_split", seconds=test_s, batches=len(test_batches),
+         systems=sum(int(b.n_graphs) for b in test_batches),
+         batch_0=shape_of(test_batches[0]), edges_min_max=[min(edges),
+                                                          max(edges)],
+         train_seconds=train_s, train_batches=len(train_batches),
+         train_systems=sum(int(b.n_graphs) for b in train_batches),
+         train_cut_from=2000,
+         note="the training split's quantity is cut, not its width")
+
+    # -- the kernel on ANF plans against its plain version ----------------
+    b0 = test_batches[0].to(dev)
+    plans0 = segsum.build_anf_plans(test_batches[0]).to(dev)
+    gen = seeded(0)
+    rows = {}
+    for F in (64, 128):
+        for name in segsum.ANF_DIRECTIONS:
+            row, shape = tools["kernel_row"](getattr(plans0, name), F, gen)
+            emit(phase="anf_kernel_vs_plain", batch="anf_test_batch_0",
+                 direction=name, **shape, **row)
+            rows[(name, F)] = row
+
+    # -- the tiled pair against the kernel route, F = 128 -----------------
+    t0 = time.perf_counter()
+    tiles0 = tiled_ops.build_anf_tiles(test_batches[0])
+    tile_build_s = time.perf_counter() - t0
+    tiles0 = tiles0.to(dev)
+    T, Tp = tiles0.n_real_tiles, tiles0.n_tiles
+    blocks = tiles0.blocks
+    deg = max(float(blocks.sum(2).max()), float(blocks.sum(1).max()))
+    F = 128
+    tiled_rows = {}
+    with torch.no_grad():
+        for name, tiled_fn, kernel_fn, n_in, n_out in (
+                ("node_to_clause", tiled_ops.tiled_lit_to_clause,
+                 segsum.plan_node_to_clause, b0.n_value_nodes, b0.C),
+                ("clause_to_node", tiled_ops.tiled_clause_to_lit,
+                 segsum.plan_clause_to_node, b0.C, b0.n_value_nodes)):
+            x = torch.randn((n_in, F), generator=gen, device=dev)
+            ref = kernel_fn(x, plans0)
+            errs, times = {}, {}
+            for mode in ("highest", "default"):
+                got = tiled_fn(x, tiles0, mode)
+                sync()
+                errs[mode] = (got - ref).abs().max().item()
+                times[mode] = device_ms(lambda: tiled_fn(x, tiles0, mode))
+            kernel_ms = device_ms(lambda: kernel_fn(x, plans0))
+            # the tile products' work on this batch: 2 T tc tl F operations
+            # on the f32 pipe (TF32 off; the bf16 setting upcasts), and the
+            # blocks, each tile's input rows and the output moved once
+            ops = 2 * T * tiles0.tc * tiles0.tl * F
+            nbytes = 4 * (T * tiles0.tc * tiles0.tl + T * tiles0.tl * F +
+                          n_out * F)
+            bound_by = "operations" if ops / H100_F32_OPS_PER_S >= \
+                nbytes / H100_BYTES_PER_S else "bytes"
+            row = dict(f32_ms=times["highest"], bf16_operands_ms=times[
+                "default"], kernel_route_ms=kernel_ms,
+                bound_ms=max(ops / H100_F32_OPS_PER_S,
+                             nbytes / H100_BYTES_PER_S) * 1e3,
+                bound_by=bound_by, max_abs_err_f32=errs["highest"],
+                max_abs_err_bf16=errs["default"])
+            emit(phase="anf_tiled_vs_flat", direction=name, F=F, tiles=T,
+                 padded_tiles=Tp, tile_mbytes=Tp * tiles0.tc * tiles0.tl *
+                 4 / 1e6, tile_build_s=tile_build_s, operations=ops,
+                 bytes=nbytes, **row)
+            if errs["highest"] > 1e-4 * max(1.0, ref.abs().max().item()):
+                raise RuntimeError(f"tiled {name} at f32 differs from the "
+                                   f"kernel route by {errs['highest']}")
+            if errs["default"] > 2.0 ** -8 * x.abs().max().item() * deg:
+                raise RuntimeError(f"tiled {name} at bf16 operands differs "
+                                   f"by {errs['default']}")
+            tiled_rows[name] = row
+    del tiles0, blocks
+
+    # -- the CNF flat backends of the training script (DSAT_FLAT_BACKEND):
+    # the pair and one full-width QuerySAT train step on the 20 000-node
+    # batch, through the kernel plans and through tiles
+    from diffusionsat_torch.data.bench_workloads import threshold_3sat_batch
+    from diffusionsat_torch.models.query_sat import (
+        QuerySATConfig,
+        query_sat_init,
+    )
+    from diffusionsat_torch.train.loop import make_planned_train_step
+
+    cnf_batch, _ = threshold_3sat_batch(np.random.default_rng(0), 20000)
+    cnf_plans = segsum.build_batch_plans(cnf_batch).to(dev)
+    t0 = time.perf_counter()
+    cnf_tiles = tiled_ops.build_tiled_incidence(cnf_batch)
+    cnf_tile_s = time.perf_counter() - t0
+    cnf_tiles = cnf_tiles.to(dev)
+    cnf_batch = cnf_batch.to(dev)
+    with torch.no_grad():
+        for name, tiled_fn, kernel_fn, n_in in (
+                ("lit_to_clause", tiled_ops.tiled_lit_to_clause,
+                 segsum.plan_lit_to_clause, 2 * cnf_batch.V),
+                ("clause_to_lit", tiled_ops.tiled_clause_to_lit,
+                 segsum.plan_clause_to_lit, cnf_batch.C)):
+            x = torch.randn((n_in, F), generator=gen, device=dev)
+            ref = kernel_fn(x, cnf_plans)
+            emit(phase="cnf_tiled_vs_flat", direction=name, F=F,
+                 tiles=cnf_tiles.n_real_tiles,
+                 padded_tiles=cnf_tiles.n_tiles, tile_build_s=cnf_tile_s,
+                 f32_ms=device_ms(lambda: tiled_fn(x, cnf_tiles, "highest")),
+                 bf16_operands_ms=device_ms(
+                     lambda: tiled_fn(x, cnf_tiles, "default")),
+                 kernel_route_ms=device_ms(lambda: kernel_fn(x, cnf_plans)),
+                 max_abs_err_f32=(tiled_fn(x, cnf_tiles, "highest") -
+                                  ref).abs().max().item())
+    qcfg = QuerySATConfig()
+    for backend, plan in (("segsum", cnf_plans), ("tiled", cnf_tiles)):
+        opt = adabelief(learning_rate=1e-3, clip_gradients=True)
+        p = query_sat_init(seeded(0), qcfg)
+        holder = {"state": TrainState(params=p, opt_state=opt.init(p),
+                                      step=0, generator=seeded(1))}
+        qstep = make_planned_train_step(qcfg, opt, dev)
+
+        def one_cnf_step():
+            holder["state"], _ = qstep(holder["state"], cnf_batch, plan)
+
+        wall, busy, kernels, top = profiled(one_cnf_step)
+        emit(phase="cnf_flat_backend_step", backend=backend,
+             tile_precision=tiled_ops.TILE_PRECISION, wall_ms=wall,
+             device_busy_ms=busy, device_busy_share=busy / wall,
+             kernels_per_step=sum(e.count for e in kernels),
+             top=[(e.key[:60], dev_us(e) / 1e3, e.count) for e in top])
+    del cnf_tiles, cnf_plans, cnf_batch
+
+    # -- the flagship's eval, flat through the kernel: a main path --------
+    rounds = ANFSATConfig().test_rounds
+    out_path = ROOT / "runs" / "chip_smoke_anf_eval.json"
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    segsum.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    res = anf_eval.main(["--ckpt", str(ANF_CKPT), "--device", str(dev),
+                         "--data_dir", str(data_dir), "--out",
+                         str(out_path)])
+    sync()
+    eval_wall = time.perf_counter() - t0
+    eval_launches = dict(segsum.LAUNCHES)
+    out_path.unlink()
+    nb = len(test_batches)
+    # a round without labels: the query's value sums, the messages and the
+    # unsupervised loss's value sums (node -> clause), one reply (clause ->
+    # node), one AND scatter
+    reckoned = {"lit_to_clause": 0, "clause_to_lit": 0,
+                "node_to_clause": 3 * rounds * nb,
+                "clause_to_node": rounds * nb, "and_to_var": rounds * nb}
+    emit(phase="anf_eval", ckpt=ANF_CKPT.name, rounds=rounds, batches=nb,
+         **res, wall_s=eval_wall, launches=eval_launches,
+         reckoned_launches=reckoned,
+         pass_mark={k: dict(record=v[0], window=v[1])
+                    for k, v in ANF_PASS_MARK.items()})
+    for key, (record, window) in ANF_PASS_MARK.items():
+        if abs(res[key] - record) > window:
+            raise RuntimeError(f"anf_eval: {key} {res[key]} outside "
+                               f"{record} +- {window}")
+    if eval_launches != reckoned:
+        raise RuntimeError(f"anf_eval launches {eval_launches}, reckoned "
+                           f"{reckoned}")
+
+    # -- training, tiled and flat, at full width --------------------------
+    cfg = ANFSATConfig()
+    t0 = time.perf_counter()
+    tiled_train = [(b.to(dev), tiled_ops.build_anf_tiles(b).to(dev))
+                   for b in train_batches]
+    tiles_s = time.perf_counter() - t0
+    flat_train = plan_batches(train_batches, dev)
+    tb0, tp0 = flat_train[0]
+    noise = torch.randn((cfg.train_rounds, tb0.V, 4), generator=seeded(1),
+                        device=dev)
+    params0 = anf_sat_init(seeded(0), cfg)
+    first = {}
+    for name, kw, mode in (("flat", {"plans": tp0}, "highest"),
+                           ("tiled_f32", {"tiles": tiled_train[0][1]},
+                            "highest"),
+                           ("tiled_bf16", {"tiles": tiled_train[0][1]},
+                            "default")):
+        with tiled_ops.tile_precision(mode):
+            first[name] = anf_sat_apply(
+                params0, cfg, tb0, training=True, labels=tb0.solutions,
+                round_noise=noise, device=dev, **kw)[1].item()
+    emit(phase="anf_train_first_loss", **first, tile_build_s=tiles_s,
+         tolerance=ANF_FIRST_LOSS_RTOL)
+    if abs(first["tiled_f32"] - first["flat"]) > \
+            ANF_FIRST_LOSS_RTOL * abs(first["flat"]):
+        raise RuntimeError(f"first tiled and flat losses differ: {first}")
+
+    @torch.no_grad()
+    def fixed_loss(params):
+        return anf_sat_apply(params, cfg, tb0, training=False,
+                             labels=tb0.solutions, rounds=cfg.train_rounds,
+                             round_noise=noise, plans=tp0,
+                             device=dev)[1].item()
+
+    def fresh(layout):
+        opt = adabelief(learning_rate=1e-3, clip_gradients=True)
+        p = anf_sat_init(seeded(0), cfg)
+        state = TrainState(params=p, opt_state=opt.init(p), step=0,
+                           generator=seeded(1))
+        step = make_planned_train_step_for(
+            anf_sat_apply, cfg, opt, device=dev,
+            plan_kw="tiles" if layout == "tiled" else "plans")
+        return state, step
+
+    train_launches = {}
+    steps_of = {}
+    for layout, items in (("tiled", tiled_train), ("flat", flat_train)):
+        state, step = fresh(layout)
+        before = fixed_loss(state.params)
+        stream = train_ds.repeat_shuffled(items)
+        torch.cuda.reset_peak_memory_stats()
+        segsum.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(ANF_TRAIN_STEPS):
+            state, out = step(state, *next(stream))
+            losses.append(out["loss"])
+        losses = torch.stack(losses).cpu().tolist()
+        sync()
+        wall = time.perf_counter() - t0
+        launched = dict(segsum.LAUNCHES)
+        after = fixed_loss(state.params)
+        steps_of[layout] = (step, items)
+        emit(phase="anf_train", layout=layout, steps=ANF_TRAIN_STEPS,
+             train_rounds=cfg.train_rounds, losses=losses,
+             fixed_batch_loss_before=before, fixed_batch_loss_after=after,
+             wall_s=wall, steps_per_s=ANF_TRAIN_STEPS / wall,
+             peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+             launches=launched,
+             tile_precision=tiled_ops.TILE_PRECISION if layout == "tiled"
+             else None)
+        if not np.isfinite(losses).all() or not after < before:
+            raise RuntimeError(f"anf_train ({layout}): the loss did not "
+                               f"fall ({before} -> {after})")
+        if layout == "tiled":
+            if sum(launched.values()):
+                raise RuntimeError(f"tiled steps launched {launched}")
+            continue
+        r = ANF_TRAIN_STEPS * cfg.train_rounds
+        # a round: 2 node -> clause sums forward, again when the round is
+        # recomputed, 1 as the reply's backward; the reply forward,
+        # recomputed, and as the 2 sums' backward; the AND scatter forward,
+        # recomputed, and its transpose backward
+        want = {"lit_to_clause": 0, "clause_to_lit": 0,
+                "node_to_clause": 5 * r, "clause_to_node": 4 * r,
+                "and_to_var": 2 * r, "var_to_and": r}
+        if launched != want:
+            raise RuntimeError(f"flat ANF steps launched {launched}, "
+                               f"reckoned {want}")
+        train_launches = launched
+
+    # -- the training script in-process: eval, checkpoint, restore ---------
+    run_root = ROOT / "runs" / "chip_smoke_anf"
+    shutil.rmtree(run_root, ignore_errors=True)
+    argv = ["--train_size", str(ANF_TRAIN_SIZE), "--test_size",
+            str(ANF_SCRIPT_TEST_SIZE), "--data_dir", str(data_dir),
+            "--train_dir", str(run_root), "--device", str(dev),
+            "--eval_every", "5"]
+    sync()
+    t0 = time.perf_counter()
+    final = anf_training.main(argv + ["--train_steps", "10"])
+    script_wall = time.perf_counter() - t0
+    run_dir = Path(final["run_dir"])
+    ckpts = sorted(p.name for p in (run_dir / "ckpt").iterdir())
+    final2 = anf_training.main(argv + ["--train_steps", "12", "--restore",
+                                       str(run_dir / "ckpt"), "--label",
+                                       "resumed"])
+    resumed = [json.loads(ln)["step"] for ln in (
+        Path(final2["run_dir"]) / "train_log.jsonl").read_text().splitlines()
+        if "steps_per_sec" in ln]
+    exported = restore_model_params(run_dir / "params.npz", anf_sat_init,
+                                    cfg, dev)
+    emit(phase="anf_train_script", steps=10, wall_s=script_wall,
+         eval=final, checkpoints=ckpts, resumed_to=resumed,
+         exported_modules=len(exported))
+    if ckpts != ["ckpt_10.npz"] or resumed != [12]:
+        raise RuntimeError(f"anf_train_script: {ckpts} {resumed}")
+    shutil.rmtree(run_root)
+
+    # -- anchored CDCL completion on the first systems of the split --------
+    params = restore_model_params(ANF_CKPT, anf_sat_init, cfg, dev)
+    planned_test = plan_batches(test_batches[:ANF_COMPLETION_SYSTEMS], dev)
+    gen = seeded(9)
+    solved = total = 0
+    solved_at = {}
+    host_s = 0.0
+    for batch, plans in planned_test:
+        if total >= ANF_COMPLETION_SYSTEMS:
+            break
+        with torch.no_grad():
+            head = anf_sat_apply(params, cfg, batch, gen, training=False,
+                                 plans=plans, device=dev)[0][:, 0].cpu()
+        head = head.numpy()
+        t0 = time.perf_counter()
+        geqs = extract_graph_equations(batch)
+        var_graph = batch.var_graph.cpu().numpy()
+        for g in sorted(geqs):
+            if total >= ANF_COMPLETION_SYSTEMS:
+                break
+            vids = np.flatnonzero(var_graph == g)
+            total += 1
+            ok, spec, _ = input_anchored_complete(
+                geqs[g], vids, (head > 0).astype(np.int8), np.abs(head))
+            if ok:
+                solved += 1
+                solved_at[str(spec)] = solved_at.get(str(spec), 0) + 1
+        host_s += time.perf_counter() - t0
+    emit(phase="anf_completion", systems=total, solved=solved,
+         solved_at_release=solved_at, host_seconds=host_s,
+         host_seconds_per_system=host_s / max(total, 1))
+
+    # -- where an eval round and a train step spend their time -----------
+    batch, plans = planned_test[0]
+
+    def eval_rounds():
+        with torch.no_grad():
+            anf_sat_apply(params, cfg, batch, seeded(3), training=False,
+                          rounds=8, plans=plans, device=dev)
+
+    wall, busy, kernels, top = profiled(eval_rounds)
+    emit(phase="profile_anf", what="eval_round", rounds=8,
+         wall_ms_per_round=wall / 8, device_busy_ms_per_round=busy / 8,
+         device_busy_share=busy / wall,
+         kernels_per_round=sum(e.count for e in kernels) / 8,
+         segsum_share_of_busy=sum(dev_us(e) for e in kernels
+                                  if "gather_segsum" in e.key) / 1e3 /
+         max(busy, 1e-9),
+         top=[(e.key[:60], dev_us(e) / 1e3, e.count) for e in top])
+    for layout, (step, items) in steps_of.items():
+        state, _ = fresh(layout)
+        holder = {"state": state}
+
+        def one_step():
+            holder["state"], _ = step(holder["state"], *items[0])
+
+        with tiled_ops.tile_precision("default"):
+            wall, busy, kernels, top = profiled(one_step)
+        emit(phase="profile_anf", what=f"train_step_{layout}",
+             train_rounds=cfg.train_rounds, wall_ms=wall,
+             device_busy_ms=busy, device_busy_share=busy / wall,
+             kernels_per_step=sum(e.count for e in kernels),
+             segsum_share_of_busy=sum(dev_us(e) for e in kernels
+                                      if "gather_segsum" in e.key) / 1e3 /
+             max(busy, 1e-9),
+             top=[(e.key[:60], dev_us(e) / 1e3, e.count) for e in top])
+
+    # the kernels line's ANF rows: times at F = 128 on test batch 0, the
+    # launches of the eval and of the flat training steps (the main paths)
+    kernels_line = []
+    for name in segsum.ANF_DIRECTIONS:
+        r = rows[(name, 128)]
+        n_eval, n_train = eval_launches.get(name, 0), train_launches[name]
+        if n_eval + n_train <= 0:
+            raise RuntimeError(f"segsum kernel ({name}) was not launched on "
+                               "the ANF paths")
+        kernels_line.append(dict(
+            name=f"gather_segsum:{name}", route="cuda",
+            source=KERNEL_SOURCE, replaces=REPLACES,
+            launches=n_eval + n_train, max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            launches_anf_eval=n_eval, launches_anf_train_flat=n_train,
+            shapes="anf_test_batch_0, F=128", F64=rows[(name, 64)],
+            tiled_pair=tiled_rows.get(name)))
+    return {"kernels": kernels_line}
+
+
+def main(argv: list[str]) -> int:
+    import torch
+
+    if argv not in ([], ["--only-anf"]):
+        print("usage: chip_smoke.py [--only-anf]", file=sys.stderr)
+        return 2
+    only_anf = argv == ["--only-anf"]
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -473,42 +962,43 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / (iters * reps)
 
-    # -- phase 1: build ---------------------------------------------------
-    t0 = time.perf_counter()
-    lib = segsum.build_library()
-    emit(phase="build", seconds=time.perf_counter() - t0,
-         nvcc_seconds=lib.build_seconds, library=lib.path.name,
-         ptxas=[ln for ln in lib.build_log.splitlines() if "Used" in ln])
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    t0 = time.perf_counter()
-    solver_lib = build_solver()
-    emit(phase="native_build", seconds=time.perf_counter() - t0,
-         library=solver_lib.name)
-    # the eval's test split, generated here by the native solver unless an
-    # earlier run left it in the cache directory
-    data_dir = ROOT / "data_cache"
-    t0 = time.perf_counter()
-    eval_batches = list(solve_eval.build_dataset(
-        60000, 2000, 3, 30, seed=0, data_dir=data_dir).test_data())
-    emit(phase="eval_split", seconds=time.perf_counter() - t0,
-         batches=len(eval_batches),
-         instances=sum(int(b.n_graphs) for b in eval_batches))
+    def kernel_row(plan, F, gen):
+        """The kernel against its plain version on `plan` at width F, on a
+        random input: the max-abs error (which must lie within KERNEL_TOL),
+        the device times of the kernel, the plain version and the library
+        calls for the same function, and the bound. Returns (row, shape)."""
+        x = torch.randn((plan.num_sources, F), generator=gen, device=dev)
+        got = segsum.gather_segsum(x, plan)
+        want = segsum.segsum_plain(x, plan)
+        sync()
+        torch.testing.assert_close(got, want, **KERNEL_TOL)
+        err = (got - want).abs().max().item()
+        M, E = plan.num_segments, plan.gather.shape[0]
+        seg = torch.repeat_interleave(
+            torch.arange(M, device=dev, dtype=torch.int32),
+            plan.row_ptr.diff(), output_size=E)
+        acc = torch.zeros((M, F), device=dev)
 
-    # the flagship's params and the 20 000-node batch, flat with its plans
-    # and re-blocked, shared by the phases below
-    tree, meta = load_params(CKPT)
-    params = params_from_numpy(tree, dev)
-    big_batch, _ = threshold_3sat_batch(np.random.default_rng(0), 20000)
-    big_plans = segsum.build_batch_plans(big_batch).to(dev)
-    big_dense = densify_batches_quantized([big_batch])[0].to(dev)
-    big_offsets = np.concatenate([[0], np.cumsum(
-        big_batch.n_vars_per_graph.numpy().astype(np.int64)[
-            :int(big_batch.n_graphs)])])
-    big_batch = big_batch.to(dev)
+        def library_call():
+            # the same function from library calls: the gather, then one
+            # index_add_ into the segments
+            acc.zero_().index_add_(0, seg, x.index_select(0, plan.gather))
+
+        # each input read once (x, row_ptr, gather), the output written
+        # once; E * F additions
+        N = plan.num_sources
+        nbytes = N * F * 4 + M * F * 4 + E * 4 + (M + 1) * 4
+        ops = E * F
+        bound_s = max(nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S)
+        row = dict(
+            ms=device_ms(lambda: segsum.gather_segsum(x, plan)),
+            plain_ms=device_ms(lambda: segsum.segsum_plain(x, plan)),
+            library_ms=device_ms(library_call),
+            bound_ms=bound_s * 1e3,
+            bound_by=("bytes" if nbytes / H100_BYTES_PER_S >=
+                      ops / H100_F32_OPS_PER_S else "operations"),
+            max_abs_err=err)
+        return row, dict(segments=M, edges=E, sources=N, F=F, bytes=nbytes)
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -530,6 +1020,54 @@ def main() -> int:
             fn()
         return sum(dev_us(e) for e in cuda_kernels(prof)) / 1e6
 
+    # -- phase 1: build ---------------------------------------------------
+    t0 = time.perf_counter()
+    lib = segsum.build_library()
+    emit(phase="build", seconds=time.perf_counter() - t0,
+         nvcc_seconds=lib.build_seconds, library=lib.path.name,
+         ptxas=[ln for ln in lib.build_log.splitlines() if "Used" in ln])
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    solver_lib = build_solver()
+    emit(phase="native_build", seconds=time.perf_counter() - t0,
+         library=solver_lib.name)
+    data_dir = ROOT / "data_cache"
+    tools = dict(sync=sync, device_ms=device_ms, kernel_row=kernel_row,
+                 profile=profile, activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA],
+                 cuda_kernels=cuda_kernels, dev_us=dev_us)
+    if only_anf:
+        anf = anf_phase(dev, data_dir, tools)
+        print(json.dumps({"kernels": anf["kernels"]}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    # the eval's test split, generated here by the native solver unless an
+    # earlier run left it in the cache directory
+    t0 = time.perf_counter()
+    eval_batches = list(solve_eval.build_dataset(
+        60000, 2000, 3, 30, seed=0, data_dir=data_dir).test_data())
+    emit(phase="eval_split", seconds=time.perf_counter() - t0,
+         batches=len(eval_batches),
+         instances=sum(int(b.n_graphs) for b in eval_batches))
+
+    # the flagship's params and the 20 000-node batch, flat with its plans
+    # and re-blocked, shared by the phases below
+    tree, meta = load_params(CKPT)
+    params = params_from_numpy(tree, dev)
+    big_batch, _ = threshold_3sat_batch(np.random.default_rng(0), 20000)
+    big_plans = segsum.build_batch_plans(big_batch).to(dev)
+    big_dense = densify_batches_quantized([big_batch])[0].to(dev)
+    big_offsets = np.concatenate([[0], np.cumsum(
+        big_batch.n_vars_per_graph.numpy().astype(np.int64)[
+            :int(big_batch.n_graphs)])])
+    big_batch = big_batch.to(dev)
 
     # -- phase 2: kernel vs plain at the main path's shapes ----------------
     cfg32 = QuerySATConfig.from_meta(meta["config"], test_rounds=32)
@@ -552,40 +1090,9 @@ def main() -> int:
             ("eval_split_batch_0", eval_batches[0].to(dev), eval_plans),
             ("p24_formula_0_x125", p24_sampler.batch, p24_sampler.plans)):
         for plan in (plans.lit_to_clause, plans.clause_to_lit):
-            x = torch.randn((plan.num_sources, F), generator=gen, device=dev)
-            got = segsum.gather_segsum(x, plan)
-            want = segsum.segsum_plain(x, plan)
-            sync()
-            torch.testing.assert_close(got, want, **KERNEL_TOL)
-            err = (got - want).abs().max().item()
-            M, E = plan.num_segments, plan.gather.shape[0]
-            seg = torch.repeat_interleave(
-                torch.arange(M, device=dev, dtype=torch.int32),
-                plan.row_ptr.diff(), output_size=E)
-            acc = torch.zeros((M, F), device=dev)
-
-            def library_call():
-                # the same function from library calls: the gather, then
-                # one index_add_ into the segments
-                acc.zero_().index_add_(0, seg, x.index_select(0, plan.gather))
-
-            # each input read once (x, row_ptr, gather), the output
-            # written once; E * F additions
-            N = plan.num_sources
-            nbytes = N * F * 4 + M * F * 4 + E * 4 + (M + 1) * 4
-            ops = E * F
-            bound_s = max(nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S)
-            row = dict(
-                ms=device_ms(lambda: segsum.gather_segsum(x, plan)),
-                plain_ms=device_ms(lambda: segsum.segsum_plain(x, plan)),
-                library_ms=device_ms(library_call),
-                bound_ms=bound_s * 1e3,
-                bound_by=("bytes" if nbytes / H100_BYTES_PER_S >=
-                          ops / H100_F32_OPS_PER_S else "operations"),
-                max_abs_err=err)
+            row, shape = kernel_row(plan, F, gen)
             emit(phase="kernel_vs_plain", batch=batch_name,
-                 direction=plan.name, segments=M, edges=E,
-                 sources=plan.num_sources, F=F, bytes=nbytes, **row)
+                 direction=plan.name, **shape, **row)
             kernel_rows.setdefault(batch_name, {})[plan.name] = row
 
     # -- phase 3: the model at full width on the 20k-node batch -----------
@@ -1257,6 +1764,7 @@ def main() -> int:
     train_launches = launches_of
 
     uni_launches = uniformity_phase(dev, data_dir, sync, busy_seconds)
+    anf = anf_phase(dev, data_dir, tools)
 
 
     # one row per kernel: times at the sampler's shapes, launches of the
@@ -1278,7 +1786,7 @@ def main() -> int:
                     uniformity_shapes=kernel_rows["p24_formula_0_x125"][d],
                     train_shapes=kernel_rows["threshold3sat_20k"][d])
                for d, r in kernel_rows["primes_3599_x15"].items()]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels + anf["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1286,4 +1794,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -14,7 +14,9 @@ Two execution layouts:
   trains through `query_sat_dense_apply`, in block-level bf16 unless
   `DSAT_BLOCK_BF16=0`. Batches over the cutoff (`DSAT_DENSE_MAX_VARS`,
   128 variables) stay flat and train through the planned step beside the
-  dense ones;
+  dense ones: on the segsum kernel, or, with `DSAT_FLAT_BACKEND=tiled`
+  (the TPU package's default there), on the tile products of each batch's
+  non-empty 128 x 128 incidence tiles (ops/tiled_ops.py);
 - flat (`--dense false`): every batch trains through `query_sat_apply`
   with its `BatchPlans`, so the literal-clause aggregations and their
   backwards run on the segsum kernel.
@@ -61,6 +63,7 @@ from diffusionsat_torch.models.query_sat import (
 )
 from diffusionsat_torch.models.query_sat_dense import query_sat_dense_apply
 from diffusionsat_torch.ops import dense_ops
+from diffusionsat_torch.ops.tiled_ops import build_tiled_incidence
 from diffusionsat_torch.train.adabelief import (
     adabelief,
     cosine_decay_schedule,
@@ -100,12 +103,18 @@ def _check_ported(cfg: RunConfig) -> None:
         raise NotImplementedError(
             "--mega_steps (many steps per dispatch, e.g. a CUDA graph) waits "
             "for the ROADMAP Queue 1 item 5")
+    _flat_backend()
+
+
+def _flat_backend() -> str:
+    """The backend of the over-cutoff flat batches of a dense run:
+    "segsum" (also read from the TPU package's name "pallas") or "tiled"."""
     backend = os.environ.get("DSAT_FLAT_BACKEND", "segsum")
-    if backend not in ("segsum", "pallas"):
+    if backend not in ("segsum", "pallas", "tiled"):
         raise NotImplementedError(
-            f"DSAT_FLAT_BACKEND={backend}: the only flat backend is the "
-            "segsum kernel; the tiled layout waits for the ROADMAP Queue 1 "
-            "item 7 'Tiled flat layout and hybrid dispatch'")
+            f"DSAT_FLAT_BACKEND={backend}: the flat backends are the segsum "
+            "kernel (segsum, pallas) and the tiled layout (tiled)")
+    return "segsum" if backend == "pallas" else backend
 
 
 def build_dataset(cfg: RunConfig) -> SatDataset:
@@ -253,7 +262,13 @@ def _run(cfg: RunConfig, dev: torch.device) -> dict:
             cfg = dataclasses.replace(cfg, dense=False)
     if cfg.dense:
         dense_batches = [b.to(dev) for b in dense_batches]
-        planned_rest = plan_batches(flat_rest, dev)
+        if _flat_backend() == "tiled" and flat_rest:
+            planned_rest = [(b.to(dev), build_tiled_incidence(b).to(dev))
+                            for b in flat_rest]
+            print(f"flat backend: tiles for {len(flat_rest)} over-cutoff "
+                  "batches", flush=True)
+        else:
+            planned_rest = plan_batches(flat_rest, dev)
         print("train batches device-cached", flush=True)
         diag_apply = query_sat_dense_apply
         if cfg.self_supervised:

@@ -14,7 +14,14 @@ segmented sum over a CSR plan, one warp per output row, no atomics.
 - `plan_lit_to_clause` / `plan_clause_to_lit`: the differentiable pair the
   model and the losses call; each one's backward is the other direction,
   launched through the same kernel (and counted in `LAUNCHES` under the
-  direction it launches).
+  direction it launches). Given a `TiledIncidence` (ops/tiled_ops.py)
+  instead of `BatchPlans`, they run the tiled pair, so one `plans=`
+  argument serves both layouts.
+- `build_anf_plans` and `plan_node_to_clause` / `plan_clause_to_node` /
+  `plan_and_to_var`: the same kernel over an ANF batch's membership edges
+  (clauses x the 1 + V + A value nodes) and over the scatter of the AND
+  nodes' values to their two operand variables. Their launches are counted
+  under their own names, apart from the CNF directions.
 
 The kernel is compiled from the package's sources with nvcc at first use,
 into `_build/` beside this package, and bound with ctypes.
@@ -35,20 +42,33 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from diffusionsat_torch.ops.tiled_ops import (
+    TiledIncidence,
+    tiled_clause_to_lit,
+    tiled_lit_to_clause,
+)
+
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCE = _PKG_DIR / "csrc" / "segsum.cu"
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# plan directions: the CNF literal-clause pair, and the ANF membership pair
+# with the AND -> operand-variable scatter and its transpose
+CNF_DIRECTIONS = ("lit_to_clause", "clause_to_lit")
+ANF_DIRECTIONS = ("node_to_clause", "clause_to_node", "and_to_var",
+                  "var_to_and")
+
 # kernel launches per plan direction; callers reset and read these to show
-# that a run went through the kernel
-LAUNCHES: dict[str, int] = {"lit_to_clause": 0, "clause_to_lit": 0}
+# that a run went through the kernel. The CNF directions are always listed;
+# any other direction is listed from its first launch after a reset
+LAUNCHES: dict[str, int] = dict.fromkeys(CNF_DIRECTIONS, 0)
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    LAUNCHES.clear()
+    LAUNCHES.update(dict.fromkeys(CNF_DIRECTIONS, 0))
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +204,69 @@ def build_batch_plans(batch) -> BatchPlans:
     return BatchPlans(lit_to_clause=c, clause_to_lit=lit)
 
 
+@dataclasses.dataclass
+class ANFPlans:
+    """The kernel's plans over one ANFBatch.
+
+    The constant-one node (node 0) is a member of every equation with a
+    constant term, thousands in a 17-round SHA-1 batch: in the membership
+    incidence it is a dense column. A warp summing that one segment walks
+    its edges one after another (about 200 us at F = 64 on an H100, 40x
+    the whole direction's bound), and a sum of thousands of f32 terms has
+    no order that two routes share to 1e-5. So the plans hold the sparse
+    part, without node 0's edges, and `const_count` holds the column: the
+    node -> clause sum adds `const_count * x[0]` (a rank-1 update) and the
+    clause -> node sum gets its row 0 as `const_count @ y` (a reduction),
+    both dense library products outside the kernel.
+    """
+    node_to_clause: SegsumPlan  # segments: C clauses, sources: 1+V+A nodes
+    clause_to_node: SegsumPlan  # segments: 1+V+A nodes, sources: C clauses
+    and_to_var: SegsumPlan      # segments: V vars, sources: A AND nodes
+    var_to_and: SegsumPlan      # segments: A AND nodes, sources: V vars
+    const_count: torch.Tensor   # [C] f32: node 0's edges into each clause
+
+    def to(self, device: str | torch.device) -> "ANFPlans":
+        return ANFPlans(*(getattr(self, f.name).to(device)
+                          for f in dataclasses.fields(self)))
+
+
+def build_anf_plans(batch) -> ANFPlans:
+    """Build the kernel's plans of an ANFBatch on the host (CPU tensors):
+    both membership directions over the masked edges of the nodes other
+    than the constant one (whose edges are counted per clause instead),
+    and the scatter of each real AND node's value to its two operand
+    variables (`and1 - 1`, `and2 - 1`, clamped at 0 as the model clamps
+    them) with its transpose, which gathers and adds the two operands'
+    rows."""
+    a = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    n_nodes, C, V, A = batch.n_value_nodes, batch.C, batch.V, batch.A
+    node_c, clause_c = a(batch.edge_node_c), a(batch.edge_clause_c)
+    node_n, clause_n = a(batch.edge_node_n), a(batch.edge_clause_n)
+    mask_c = (a(batch.edge_mask_c) > 0) & (node_c != 0)
+    mask_n = (a(batch.edge_mask_n) > 0) & (node_n != 0)
+    const = (a(batch.edge_mask_c) > 0) & (node_c == 0)
+    const_count = np.bincount(clause_c[const], minlength=C).astype(
+        np.float32)
+    n2c = build_segsum_plan("node_to_clause", clause_c, node_c, mask_c,
+                            num_segments=C, num_sources=n_nodes)
+    c2n = build_segsum_plan("clause_to_node", node_n, clause_n, mask_n,
+                            num_segments=n_nodes, num_sources=C)
+    valid = np.flatnonzero(a(batch.and_mask) > 0)
+    ops = np.concatenate([np.maximum(a(batch.and1)[valid] - 1, 0),
+                          np.maximum(a(batch.and2)[valid] - 1, 0)])
+    ands = np.concatenate([valid, valid])
+    ones = np.ones_like(ops)
+    by_var = np.argsort(ops, kind="stable")
+    by_and = np.argsort(ands, kind="stable")
+    a2v = build_segsum_plan("and_to_var", ops[by_var], ands[by_var], ones,
+                            num_segments=V, num_sources=A)
+    v2a = build_segsum_plan("var_to_and", ands[by_and], ops[by_and], ones,
+                            num_segments=A, num_sources=V)
+    return ANFPlans(node_to_clause=n2c, clause_to_node=c2n, and_to_var=a2v,
+                    var_to_and=v2a,
+                    const_count=torch.from_numpy(const_count))
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrapper and its plain version
 
@@ -241,7 +324,7 @@ def gather_segsum(x: torch.Tensor, plan: SegsumPlan) -> torch.Tensor:
     if rc != 0:
         msg = lib.dsat_cuda_error_string(rc).decode()
         raise RuntimeError(f"segsum kernel launch failed ({rc}): {msg}")
-    LAUNCHES[plan.name] += 1
+    LAUNCHES[plan.name] = LAUNCHES.get(plan.name, 0) + 1
     return out
 
 
@@ -264,11 +347,42 @@ class _PlannedSpMM(torch.autograd.Function):
         return gather_segsum(grad, ctx.bwd), None, None
 
 
-def plan_lit_to_clause(x: torch.Tensor, plans: BatchPlans) -> torch.Tensor:
-    """lit->clause SpMM [2V, F] -> [C, F] through the kernel."""
+def plan_lit_to_clause(x: torch.Tensor,
+                       plans: BatchPlans | TiledIncidence) -> torch.Tensor:
+    """lit->clause SpMM [2V, F] -> [C, F] through the kernel, or through
+    the tile products when `plans` is a TiledIncidence."""
+    if isinstance(plans, TiledIncidence):
+        return tiled_lit_to_clause(x, plans)
     return _PlannedSpMM.apply(x, plans.lit_to_clause, plans.clause_to_lit)
 
 
-def plan_clause_to_lit(x: torch.Tensor, plans: BatchPlans) -> torch.Tensor:
-    """clause->lit SpMM [C, F] -> [2V, F] through the kernel."""
+def plan_clause_to_lit(x: torch.Tensor,
+                       plans: BatchPlans | TiledIncidence) -> torch.Tensor:
+    """clause->lit SpMM [C, F] -> [2V, F] through the kernel, or through
+    the tile products when `plans` is a TiledIncidence."""
+    if isinstance(plans, TiledIncidence):
+        return tiled_clause_to_lit(x, plans)
     return _PlannedSpMM.apply(x, plans.clause_to_lit, plans.lit_to_clause)
+
+
+def plan_node_to_clause(x: torch.Tensor, plans: ANFPlans) -> torch.Tensor:
+    """ANF node->clause membership sum [1+V+A, F] -> [C, F]: the kernel over
+    the sparse members, plus the constant node's row times its count."""
+    out = _PlannedSpMM.apply(x, plans.node_to_clause, plans.clause_to_node)
+    # in place: the autograd pair keeps no reference to its output
+    return out.addmm_(plans.const_count[:, None], x[:1])
+
+
+def plan_clause_to_node(x: torch.Tensor, plans: ANFPlans) -> torch.Tensor:
+    """ANF clause->node membership sum [C, F] -> [1+V+A, F]: the kernel for
+    every node but the constant one, whose row (empty in the plan) is the
+    count-weighted sum of the clause rows."""
+    out = _PlannedSpMM.apply(x, plans.clause_to_node, plans.node_to_clause)
+    out[:1] = torch.mm(plans.const_count[None, :], x)
+    return out
+
+
+def plan_and_to_var(x: torch.Tensor, plans: ANFPlans) -> torch.Tensor:
+    """Each AND node's row [A, F] added to both of its operand variables:
+    [A, F] -> [V, F] through the kernel (padding AND nodes add nothing)."""
+    return _PlannedSpMM.apply(x, plans.and_to_var, plans.var_to_and)

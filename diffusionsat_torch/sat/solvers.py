@@ -43,6 +43,13 @@ def _native_lib() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.c_int8), ctypes.c_longlong,
                 ctypes.c_uint64, ctypes.POINTER(ctypes.c_int),
             ]
+            lib.dsat_solve_seeded.restype = ctypes.c_int
+            lib.dsat_solve_seeded.argtypes = [
+                ctypes.c_int, ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int8), ctypes.c_uint64,
+                ctypes.POINTER(ctypes.c_int8), ctypes.POINTER(ctypes.c_float),
+                ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong),
+            ]
             lib.dsat_walksat.restype = ctypes.c_int
             lib.dsat_walksat.argtypes = [
                 ctypes.c_int, ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
@@ -99,11 +106,44 @@ def solve(clauses: Sequence[Sequence[int]], n_vars: int | None = None,
     raise TimeoutError("CDCL conflict budget exhausted")
 
 
-def solve_seeded(*args, **kwargs):
-    """Model-seeded CDCL search belongs to the ANF path."""
-    raise NotImplementedError(
-        "solve_seeded (model-seeded CDCL of the ANF path) waits for the "
-        "ROADMAP Queue 1 item 8 'ANF'")
+def solve_seeded(clauses: Sequence[Sequence[int]], n_vars: int | None = None,
+                 seed: int = 0, polarity: np.ndarray | None = None,
+                 activity: np.ndarray | None = None,
+                 conflict_budget: int = -1
+                 ) -> tuple[bool, list[int], int]:
+    """CDCL with model-seeded search (`dsat_solve_seeded`).
+
+    `polarity`: per-var int8, -1 = solver default, 0/1 = try that value
+    first (phase init = the neural prediction). `activity`: per-var f32
+    initial VSIDS priors (confidence-ordered decisions). Returns (is_sat,
+    signed model, conflicts). Raises TimeoutError on budget exhaustion,
+    with the conflict count in the message.
+    """
+    n_vars = _n_vars_of(clauses, n_vars)
+    flat = _flatten_clauses(clauses, n_vars)
+    model = np.zeros(n_vars, dtype=np.int8)
+    pol_ptr = act_ptr = None
+    if polarity is not None:
+        polarity = np.ascontiguousarray(polarity, dtype=np.int8)
+        if polarity.shape != (n_vars,):
+            raise ValueError(f"polarity must be [{n_vars}]")
+        pol_ptr = _ptr(polarity, ctypes.c_int8)
+    if activity is not None:
+        activity = np.ascontiguousarray(activity, dtype=np.float32)
+        if activity.shape != (n_vars,):
+            raise ValueError(f"activity must be [{n_vars}]")
+        act_ptr = _ptr(activity, ctypes.c_float)
+    conflicts = ctypes.c_longlong(0)
+    r = _native_lib().dsat_solve_seeded(
+        n_vars, _ptr(flat, ctypes.c_int32), len(flat),
+        _ptr(model, ctypes.c_int8), seed, pol_ptr, act_ptr,
+        conflict_budget, ctypes.byref(conflicts))
+    if r == 1:
+        return True, _signed(model), int(conflicts.value)
+    if r == 0:
+        return False, [], int(conflicts.value)
+    raise TimeoutError(
+        f"CDCL conflict budget exhausted ({int(conflicts.value)} conflicts)")
 
 
 def enumerate_models(clauses: Sequence[Sequence[int]],

@@ -142,6 +142,29 @@ def load_model(path: str | Path, device: str | torch.device = "cuda",
                                                            **cfg_kw)
 
 
+def restore_model_params(model_ckpt: str | Path, init_fn, cfg,
+                         device: str | torch.device = "cuda") -> Any:
+    """Model params from a portable `.npz` params file or from a
+    `CheckpointManager` directory, on `device`, in the module order of
+    `init_fn(generator, cfg)`'s tree (the counterpart of the TPU package's
+    `restore_model_params`; its own checkpoint directories are another
+    format)."""
+    from diffusionsat_torch.device import resolve_device
+    from diffusionsat_torch.train.adabelief import adabelief
+
+    dev = resolve_device(device)
+    template = init_fn(torch.Generator(device=dev).manual_seed(0), cfg)
+    if str(model_ckpt).endswith(".npz"):
+        tree, _meta = load_params(model_ckpt)
+        return params_like(template, params_from_numpy(tree, dev))
+    restored = CheckpointManager(model_ckpt).restore(TrainState(
+        params=template, opt_state=adabelief().init(template), step=0,
+        generator=None))
+    if restored is None:
+        raise FileNotFoundError(f"no checkpoint in {model_ckpt}")
+    return params_like(template, restored.params)
+
+
 def params_to_numpy(tree: Any) -> Any:
     """The inverse of `params_from_numpy`: torch leaves to numpy arrays."""
     if isinstance(tree, dict):

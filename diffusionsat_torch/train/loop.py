@@ -7,17 +7,20 @@ step's loss, round count and gradient norm stay on the device; `train`
 fetches the losses once per log window. That package's many-steps-in-one-
 dispatch step is not ported (ROADMAP Queue 1, item 5).
 
-A flat batch runs with `BatchPlans` in every step here (train, self-
-supervised, diagnostics, predict), so on the card its literal-clause
-aggregations go through the segsum kernel, forward and backward. Plans are
-host-built: pass a batch together with its plans (`plan_batches`) to build
-them once, before the timed or repeated work; a bare flat batch gets its
-plans built inside the step, once per call.
+A flat batch runs with its kernel plans in every step here (train, self-
+supervised, diagnostics, predict): `BatchPlans` for a CNF `SatBatch`,
+`ANFPlans` for an `ANFBatch`, so on the card its flat aggregations go
+through the segsum kernel, forward and backward. Plans are host-built:
+pass a batch together with its plans (`plan_batches`) to build them once,
+before the timed or repeated work; a bare flat batch gets its plans built
+inside the step, once per call. A step made with `plan_kw="tiles"` takes a
+`TiledIncidence` instead (the tiled layout).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import inspect
 import itertools
 import json
@@ -31,17 +34,23 @@ from torch.utils import _pytree as pytree
 from diffusionsat_torch.diffusion.schedule import construct_training_input
 
 from diffusionsat_torch.device import resolve_device
+from diffusionsat_torch.graph.anf_batch import ANFBatch
 from diffusionsat_torch.graph.batch import SatBatch
 from diffusionsat_torch.graph.dense_batch import DenseSatBatch
 from diffusionsat_torch.losses.sat import is_graph_sat
 from diffusionsat_torch.models.query_sat import query_sat_apply
 from diffusionsat_torch.ops import dense_ops
 from diffusionsat_torch.ops.graph_ops import graph_gather_vars
-from diffusionsat_torch.ops.segsum import BatchPlans, build_batch_plans
+from diffusionsat_torch.ops.segsum import (
+    ANFPlans,
+    BatchPlans,
+    build_anf_plans,
+    build_batch_plans,
+)
 from diffusionsat_torch.train.metrics import Metric
 
-Batch = SatBatch | DenseSatBatch
-PlannedBatch = tuple[Batch, BatchPlans | None]
+Batch = SatBatch | DenseSatBatch | ANFBatch
+PlannedBatch = tuple[Batch, BatchPlans | ANFPlans | None]
 
 
 @dataclasses.dataclass
@@ -118,14 +127,23 @@ def _select_labels(batch: Batch, generator: torch.Generator | None,
                                               isolation_alpha))
 
 
-def _flat_plans(batch: Batch, plans: BatchPlans | None,
-                dev: torch.device) -> BatchPlans | None:
+def build_plans(batch: Batch) -> BatchPlans | ANFPlans | None:
+    """The kernel plans of a flat batch, host-built: `BatchPlans` of a
+    SatBatch, `ANFPlans` of an ANFBatch; None for a dense batch."""
+    if isinstance(batch, SatBatch):
+        return build_batch_plans(batch)
+    if isinstance(batch, ANFBatch):
+        return build_anf_plans(batch)
+    return None
+
+
+def _flat_plans(batch: Batch, plans, dev: torch.device):
     """A flat batch's plans on `dev`, built here when the caller passed
     none; None for a dense batch."""
-    if not isinstance(batch, SatBatch):
+    if isinstance(batch, DenseSatBatch):
         return None
     if plans is None:
-        plans = build_batch_plans(batch)
+        plans = build_plans(batch)
     return plans.to(dev)
 
 
@@ -311,15 +329,14 @@ def make_selfsupervised_train_step(cfg, optimizer,
 
 def plan_batches(batches: Iterable[Batch],
                  device: str | torch.device = "cuda") -> list[PlannedBatch]:
-    """Place every batch on `device` once, each flat batch with its
-    `BatchPlans` (built on the host before the move); dense batches get
-    None. The pairs are what `evaluate_metrics` iterates over."""
+    """Place every batch on `device` once, each flat batch with its kernel
+    plans (`BatchPlans` or `ANFPlans`, built on the host before the move);
+    dense batches get None. The pairs are what `evaluate_metrics` iterates over."""
     dev = resolve_device(device)
     out: list[PlannedBatch] = []
     for b in batches:
-        plans = build_batch_plans(b).to(dev) if isinstance(b, SatBatch) \
-            else None
-        out.append((b.to(dev), plans))
+        plans = build_plans(b)
+        out.append((b.to(dev), None if plans is None else plans.to(dev)))
     return out
 
 
@@ -334,8 +351,10 @@ def make_predict_step(cfg, apply_fn: Callable = query_sat_apply,
     pins the conditioning noise level (1.0 = pure solving, no label signal)
     instead of a uniform draw. `graph_sat_fn(logits, batch) -> [G, 1]`
     decides which graphs a try solved; it defaults to the CNF check of the
-    batch's layout. `apply_fn` is `query_sat_apply` (flat batches) or
-    `query_sat_dense_apply` (dense batches).
+    batch's layout (pass `losses.anf.is_graph_sat_anf` for ANF batches; a
+    check that takes `plans` gets the batch's). `apply_fn` is
+    `query_sat_apply` (flat batches), `query_sat_dense_apply` (dense
+    batches) or `models.anf_sat.anf_sat_apply` (ANF batches).
 
     Returns predict_step(params, batch, generator, plans=None, draws=None)
     -> {"prediction", "loss", "steps_taken"}; the prediction is [V] for a
@@ -372,6 +391,8 @@ def make_predict_step(cfg, apply_fn: Callable = query_sat_apply,
 
         sat_fn = graph_sat_fn or (dense_ops.is_graph_sat if dense
                                   else is_graph_sat)
+        if "plans" in kw and _takes(sat_fn, "plans"):
+            sat_fn = functools.partial(sat_fn, plans=kw["plans"])
 
         def to_vars(per_graph):                       # [G, 1] -> var rows
             if dense:

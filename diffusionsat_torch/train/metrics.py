@@ -100,6 +100,65 @@ class SATAccuracy(Metric):
         self.accs, self.solved = [], []
 
 
+class ANFAccuracy(Metric):
+    """Per-variable accuracy, free-input accuracy and systems solved on ANF
+    batches (reference `ANFAccuracyTF`, metrics/anf_metrics.py:5-66): a
+    graph counts as solved when every equation evaluates to its target
+    parity under the rounded prediction. The equation check runs on the
+    batch's device (plain segment sums); the bit comparisons on the host."""
+
+    def __init__(self) -> None:
+        self.accs: list[float] = []
+        self.solved: list[float] = []
+        self.free_accs: list[float] = []
+
+    def update_state(self, model_output, batch):
+        from diffusionsat_torch.losses.anf import anf_value_real
+
+        logits = model_output["prediction"]
+        logits = logits[:, None] if logits.dim() == 1 else logits
+        head = logits[:, 0].detach().cpu().numpy()
+        sols = batch.solutions.cpu().numpy()
+        var_mask = batch.var_mask.cpu().numpy()
+        pred_bits = (1.0 / (1.0 + np.exp(-head)) > 0.5).astype(int)
+        n = max(var_mask.sum(), 1.0)
+        self.accs.append(float(((pred_bits == sols) * var_mask).sum() / n))
+
+        # free message-bit input accuracy: the solving bottleneck of
+        # input-anchored completion
+        if batch.free_input_mask is not None:
+            fim = batch.free_input_mask.cpu().numpy() * var_mask
+            if fim.sum() > 0:
+                self.free_accs.append(
+                    float(((pred_bits == sols) * fim).sum() / fim.sum()))
+
+        # clause values under the rounded prediction: bit b -> logits +-10
+        hard = torch.from_numpy(
+            np.where(pred_bits == 1, -10.0, 10.0).astype(np.float32))
+        cv, _, _ = anf_value_real(hard[:, None].to(batch.device), batch)
+        clause_ok = (cv[:, 0] > 0.5).cpu().numpy()
+        clause_graph = batch.clause_graph.cpu().numpy()
+        for g in np.flatnonzero(batch.graph_mask.cpu().numpy() > 0):
+            idx = clause_graph == g
+            if idx.any():
+                self.solved.append(float(clause_ok[idx].all()))
+
+    def get_values(self, reset_state=True):
+        out = {
+            "accuracy": float(np.mean(self.accs)) if self.accs else 0.0,
+            "total_accuracy": float(np.mean(self.solved))
+            if self.solved else 0.0,
+        }
+        if self.free_accs:
+            out["free_input_accuracy"] = float(np.mean(self.free_accs))
+        if reset_state:
+            self.reset_state()
+        return out
+
+    def reset_state(self):
+        self.accs, self.solved, self.free_accs = [], [], []
+
+
 class StepStatistics(Metric):
     """Mean/median rounds taken."""
 

@@ -97,3 +97,39 @@ def flat_vars_from_dense(x_dense, flat):
     for g in range(len(nv)):
         out[off[g]:off[g + 1]] = x_dense[g, :nv[g]]
     return out
+
+
+# -- ANF ------------------------------------------------------------------
+
+ANF_BUCKET = dict(max_vars=96, max_ands=160, max_clauses=96, max_edges=512,
+                  max_graphs=6)
+
+
+def anf_items(seed=0, n=4, min_vars=4, max_vars=12):
+    """(n_vars, equations, witness) of `n` random ANF systems (the port's
+    copy of the generator; the TPU package's gives the same)."""
+    from diffusionsat_torch.data.anf import RandomAnfInstances
+    gen = RandomAnfInstances(min_vars=min_vars, max_vars=max_vars,
+                             train_size=n, seed=seed).train_generator()
+    return list(gen)
+
+
+def anf_batch_pair(items, **bucket):
+    """(TPU-package ANFBatch, port ANFBatch) of the same systems."""
+    from diffusionsat_tpu.graph import anf_batch as jab
+    from diffusionsat_torch.graph import anf_batch as tab
+    kw = dict(ANF_BUCKET, **bucket)
+    systems = [(n, eqs) for n, eqs, _ in items]
+    sols = [bits[:n] for n, _, bits in items]
+    return (jab.build_anf_batch(systems, jab.ANFBucket(**kw),
+                                solutions=sols),
+            tab.build_anf_batch(systems, tab.ANFBucket(**kw),
+                                solutions=sols))
+
+
+def jax_anf_round_noise(key, rounds, V):
+    """The per-round query noise the TPU package's `anf_sat_apply` draws
+    from `key`, as a [rounds, V, 4] torch tensor."""
+    keys = jax.random.split(key, rounds)
+    return torch.from_numpy(np.stack([
+        np.asarray(jax.random.normal(k, (V, 4))) for k in keys]))

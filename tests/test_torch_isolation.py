@@ -100,7 +100,19 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
     )
     from diffusionsat_torch.sample import main
     from diffusionsat_torch.sat.cnf import CNF
-    from diffusionsat_torch.train.checkpoint import params_from_numpy
+    from diffusionsat_torch.train.checkpoint import (
+        params_from_numpy,
+        restore_model_params,
+    )
+    from diffusionsat_torch.anf_eval import main as anf_eval_main
+    from diffusionsat_torch.anf_training import main as anf_train_main
+    from diffusionsat_torch.data.anf import RandomAnfInstances
+    from diffusionsat_torch.graph.anf_batch import ANFBucket, build_anf_batch
+    from diffusionsat_torch.models.anf_sat import (
+        ANFSATConfig,
+        anf_sat_apply,
+        anf_sat_init,
+    )
 
     cfg = QuerySATConfig(feature_maps=8, query_maps=8, test_rounds=1)
     params = query_sat_init(torch.Generator().manual_seed(0), cfg)
@@ -112,6 +124,12 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
         query_sat_apply(params, cfg, batch)
     (dense,) = densify_batches([batch])
     ckpt = str(REPO / "pretrained" / "query_sat_3sat_diffusion_mlk64.npz")
+    anf_ckpt = str(REPO / "pretrained" / "anf_sat_sha1_r17.npz")
+    anf_cfg = ANFSATConfig(feature_maps=8, query_maps=8, test_rounds=1)
+    anf_params = anf_sat_init(torch.Generator().manual_seed(0), anf_cfg)
+    anf_items = list(RandomAnfInstances(train_size=2).train_generator())
+    anf_batch = build_anf_batch([(n, e) for n, e, _ in anf_items],
+                                ANFBucket(64, 64, 64, 256, 2))
     for call in (
             lambda: query_sat_dense_apply(params, cfg, dense),
             lambda: DiffusionSampler(params, cfg, cnf, dense=False),
@@ -137,7 +155,13 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
                              str(tmp_path / "b.jsonl")]),
             lambda: freq_main(["--model_ckpt", ckpt, "--data_dir",
                                str(tmp_path), "--out",
-                               str(tmp_path / "f.npz")])):
+                               str(tmp_path / "f.npz")]),
+            lambda: anf_sat_apply(anf_params, anf_cfg, anf_batch),
+            lambda: restore_model_params(anf_ckpt, anf_sat_init, anf_cfg),
+            lambda: anf_eval_main(["--ckpt", anf_ckpt, "--data_dir",
+                                   str(tmp_path)]),
+            lambda: anf_train_main(["--data_dir", str(tmp_path),
+                                    "--train_dir", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert not list(tmp_path.iterdir())    # refused before any data work
@@ -156,6 +180,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
         == (dense.G, dense.Vg, 1)
     assert evaluate_metrics(params, cfg, plan_batches([batch], "cpu"), [],
                             None, device="cpu") == {}
+    assert anf_sat_apply(anf_params, anf_cfg, anf_batch, training=False,
+                         device="cpu")[0].shape == (64, 1)
 
 
 def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):

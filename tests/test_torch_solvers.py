@@ -63,8 +63,10 @@ def test_solver_classes_equal():
             assert t.one_sample(text) == j.one_sample(text)
         assert t.multiple_samples(text, 2) == j.multiple_samples(text, 2)
     assert isinstance(tsol.default_solver(), tsol.NativeCDCL)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsol.solve_seeded(clauses, n)
+    # model-seeded CDCL (the ANF path) gives the same result and effort
+    polarity = np.random.default_rng(1).integers(0, 2, n).astype(np.int8)
+    assert tsol.solve_seeded(clauses, n, seed=2, polarity=polarity) == \
+        jsol.solve_seeded(clauses, n, seed=2, polarity=polarity)
 
 
 @pytest.mark.parametrize("max_enumerate", [200_000, 40])

@@ -59,11 +59,37 @@ def test_unported_options_raise_naming_their_item(argv, item, tmp_path):
     assert not list(tmp_path.iterdir())
 
 
-def test_tiled_flat_backend_raises(monkeypatch, tmp_path):
-    monkeypatch.setenv("DSAT_FLAT_BACKEND", "tiled")
-    with pytest.raises(NotImplementedError, match="item 7"):
+def test_tiled_flat_backend_raises(monkeypatch, tmp_path, capsys):
+    """DSAT_FLAT_BACKEND=tiled runs: the over-cutoff batches (a small
+    DSAT_DENSE_MAX_VARS forces some) train through their tiles, beside the
+    dense ones. A backend the port does not have still raises."""
+    from diffusionsat_torch.ops import tiled_ops
+
+    monkeypatch.setenv("DSAT_FLAT_BACKEND", "xla")
+    with pytest.raises(NotImplementedError, match="tiled"):
         diffusion_training.main(["--device", "cpu", "--data_dir",
                                  str(tmp_path)])
+    assert not list(tmp_path.iterdir())
+    monkeypatch.setenv("DSAT_FLAT_BACKEND", "tiled")
+    monkeypatch.setenv("DSAT_DENSE_MAX_VARS", "20")
+    calls = []
+    pair = segsum.tiled_lit_to_clause
+
+    def spy(x, ti, *args, **kw):
+        calls.append(ti.n_real_tiles)
+        return pair(x, ti, *args, **kw)
+
+    monkeypatch.setattr(segsum, "tiled_lit_to_clause", spy)
+    segsum.reset_launch_counts()
+    final = diffusion_training.main(TINY + [
+        "--data_dir", str(tmp_path / "dc"), "--train_dir",
+        str(tmp_path / "runs"), "--train_steps", "12"])
+    out = capsys.readouterr().out
+    assert "flat backend: tiles for" in out and "hybrid dispatch" in out
+    assert calls and min(calls) > 0
+    assert tiled_ops.TILE_PRECISION == "default"
+    assert np.isfinite(final["diag_loss"])
+    assert segsum.LAUNCHES == {"lit_to_clause": 0, "clause_to_lit": 0}
 
 
 @pytest.mark.parametrize("layout", ["dense", "flat"])
