@@ -40,7 +40,8 @@ Phases, each of which raises (exit code 1) on failure:
    also for sliced cotangents; one forward and backward of the flagship's
    params through the kernel against the plain path (loss, all 24 gradient
    tensors over 4 and over 32 rounds, printed beside the plain path's own
-   run-to-run spread and beside both with the head losses left unsorted;
+   run-to-run spread, which must read 0.0, and beside both with the head
+   losses left unsorted;
    launches per step against the reckoned 128 each way); 64 optimizer
    steps each of the dense f32, the dense block-bf16 and the flat kernel
    step from a seeded init (the mean loss of the last fifth must lie below
@@ -87,7 +88,21 @@ Phases, each of which raises (exit code 1) on failure:
    completion of the first 8 systems; and profiles of an eval round and
    of a train step in each layout.
 
-`python3 chip_smoke.py --only-anf` builds and runs phase 8 alone.
+9. graphs (many steps per dispatch): 8 CUDA-graphed dense train steps
+   against 8 eager ones at full width on eight 20 000-node batches from one
+   state, f32 and block-bf16 (params, optimizer state, generator and every
+   loss equal bit for bit; peak memory), 4 graphed flat ANF steps on padded
+   plans against 4 eager ones (the same, and two eager runs equal to each
+   other), graphed inference rounds against eager ones (`DSAT_EAGER=1`) on
+   the solving eval's batch 0 (flat and dense) and on the uf20 sampler
+   chain in both layouts (the same results and launch counts), the plain
+   path's segment sums (run twice, timed by route), the wall and device
+   busy share of each graphed path beside its eager counterpart, and a
+   cut `python -m diffusionsat_torch.bench` at f32 and block-bf16.
+
+`python3 chip_smoke.py --only-anf` builds and runs phase 8 alone, and
+`--only-graphs` phase 9. Inference rounds run as CUDA graphs in every
+phase (the launches a graph captured are credited once per replay).
 
 Every line of standard output is one JSON object, except the card line of
 `nvidia-smi` and the lines that the entry points run in-process print
@@ -126,8 +141,8 @@ REPLACES = "diffusionsat_tpu/ops/pallas_segsum.py:97"
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
 
-# kernel vs plain: the plain version sums with index_add_ atomics in no
-# fixed order, so the two agree to f32 summation order
+# kernel vs plain: the two sum each segment in other (fixed) orders, so
+# they agree to f32 summation order
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 # 4 recurrent rounds amplify that summation-order difference
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -136,10 +151,11 @@ SOLVED_FRACTION_TOL = 0.05
 # one training forward and backward, kernel against plain path: the loss,
 # and every gradient tensor to this share of its largest entry (floored at
 # a hundredth of the largest gradient of all), with the rank order of the
-# head losses pinned to the plain run's. Left to sort for itself, the plain
-# path, whose atomics sum in no fixed order, differs from itself by 6e-4 to
-# 1.1e-2 between two runs on an H100: near-ties of two heads' losses swap
-# their rank weights
+# head losses pinned to the plain run's: the kernel and the plain path sum
+# in two different orders, and a near-tie of two heads' losses can swap
+# their rank weights. The plain path sums in one fixed order, so it must
+# equal itself (it lay 6e-4 to 1.1e-2 from itself while its sums took
+# atomics)
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL = 1e-2
 # training: the mean loss of the last fifth of the steps against the first
@@ -189,8 +205,13 @@ ANF_FIRST_LOSS_RTOL = 1e-4
 ANF_COMPLETION_SYSTEMS = 8
 
 
+T0 = time.perf_counter()
+
+
 def emit(**obj):
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with the script's seconds so far (`t`)."""
+    print(json.dumps({**obj, "t": round(time.perf_counter() - T0, 1)}),
+          flush=True)
 
 
 def uniformity_phase(dev, data_dir: Path, sync, busy_seconds) -> dict:
@@ -872,13 +893,420 @@ def anf_phase(dev, data_dir: Path, tools: dict) -> dict:
     return {"kernels": kernels_line}
 
 
+def graphs_phase(dev, data_dir: Path, tools: dict) -> None:
+    """Phase 9: many steps per dispatch, as CUDA graphs. At full width (128
+    / 128 maps, 32 train rounds; ANF 16): 8 graphed dense train steps
+    against 8 eager ones on eight 20 000-node threshold batches from one
+    state, f32 and block-bf16 (params, optimizer state, generator and every
+    loss equal bit for bit; peak memory); 4 graphed flat ANF steps on
+    padded plans against 4 eager ones (the same comparison); graphed
+    inference rounds against eager ones (`DSAT_EAGER=1`) on the solving
+    eval's batch 0, flat and dense, and on the sampler's chain in both
+    layouts: the same logits, samples and launch counts; the plain
+    segment sums' reductions timed and run twice; the wall and device busy
+    share of every graphed path beside its eager counterpart; and a cut
+    `python -m diffusionsat_torch.bench` (one window, one pass over the
+    batches, 8 steps a replay) at f32 and block-bf16."""
+    import argparse
+    import os
+
+    import numpy as np
+    import torch
+
+    from diffusionsat_torch import anf_eval, bench, cuda_graphs, solve_eval
+    from diffusionsat_torch.data.bench_workloads import threshold_3sat_batch
+    from diffusionsat_torch.diffusion.sampler import DiffusionSampler
+    from diffusionsat_torch.graph.dense_batch import densify_batches
+    from diffusionsat_torch.models.anf_sat import (
+        ANFSATConfig,
+        anf_sat_apply,
+        anf_sat_init,
+    )
+    from diffusionsat_torch.models.query_sat import (
+        QuerySATConfig,
+        query_sat_apply,
+        query_sat_init,
+    )
+    from diffusionsat_torch.models.query_sat_dense import (
+        query_sat_dense_apply,
+    )
+    from diffusionsat_torch.ops import dense_ops, graph_ops, segsum
+    from diffusionsat_torch.graph.dense_batch import (
+        densify_batches_quantized,
+    )
+    from diffusionsat_torch.sat.cnf import CNF
+    from diffusionsat_torch.train.adabelief import (
+        adabelief,
+        cosine_decay_schedule,
+    )
+    from diffusionsat_torch.train.checkpoint import (
+        load_params,
+        params_from_numpy,
+    )
+    from diffusionsat_torch.train.loop import (
+        TrainState,
+        build_plans,
+        make_planned_train_step_for,
+        make_predict_step,
+        make_scanned_train_step_for,
+        make_train_step_for,
+        stack_batches,
+    )
+
+    sync = tools["sync"]
+    cuda_kernels, dev_us = tools["cuda_kernels"], tools["dev_us"]
+
+    def seeded(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return time.perf_counter() - t0, out
+
+    def busy_of(fn):
+        """(busy s, kernels) of one profiled call of fn: the share is taken
+        over the same call's wall without the profiler."""
+        with tools["profile"](activities=tools["activities"]) as prof:
+            timed(fn)
+        kernels = cuda_kernels(prof)
+        return sum(dev_us(e) for e in kernels) / 1e6, \
+            sum(e.count for e in kernels)
+
+    def clone_state(st):
+        gen = torch.Generator(device=dev)
+        gen.set_state(st.generator.get_state())
+        return TrainState(
+            params=cuda_graphs.tree_map(torch.clone, st.params),
+            opt_state=cuda_graphs.tree_map(torch.clone, st.opt_state),
+            step=st.step, generator=gen)
+
+    def state_diffs(a, b):
+        """Entries that differ, over params and optimizer state, and
+        whether the generators' states are equal."""
+        la = cuda_graphs.tree_leaves((a.params, a.opt_state))
+        lb = cuda_graphs.tree_leaves((b.params, b.opt_state))
+        n = sum(int((x != y).sum()) for x, y in zip(la, lb, strict=True))
+        gen = torch.equal(a.generator.get_state(), b.generator.get_state())
+        top = max(float((x.float() - y.float()).abs().max())
+                  for x, y in zip(la, lb))
+        return n, gen, top
+
+    # -- the plain segment sums: one fixed order, and its price ------------
+    rng = np.random.default_rng(0)
+    flat20k, _ = threshold_3sat_batch(np.random.default_rng(0), 20000)
+    plans20k = segsum.build_batch_plans(flat20k).to(dev)
+    f20 = flat20k.to(dev)
+    x = torch.randn((2 * f20.V, 128), generator=seeded(0), device=dev)
+    gathered = x.index_select(0, f20.edge_lit_c) * f20.edge_mask_c[:, None]
+
+    def by_index_add():
+        return torch.zeros((f20.C, 128), device=dev).index_add_(
+            0, f20.edge_clause_c, gathered)
+
+    def by_cumsum():
+        ends = torch.searchsorted(f20.edge_clause_c, torch.arange(
+            f20.C + 1, dtype=torch.int32, device=dev))
+        c = torch.cat([torch.zeros((1, 128), device=dev),
+                       torch.cumsum(gathered, 0)])
+        return c[ends[1:]] - c[ends[:-1]]
+
+    def by_segment_reduce():
+        offsets = torch.searchsorted(f20.edge_clause_c, torch.arange(
+            f20.C + 1, dtype=torch.int32, device=dev))
+        return torch.segment_reduce(gathered, "sum", offsets=offsets,
+                                    axis=0, unsafe=True)
+
+    def by_blocks():
+        return graph_ops.segment_sum(gathered, f20.edge_clause_c, f20.C)
+
+    # the per-graph sums of the pair norms: few long segments
+    clause_rows = torch.randn((f20.C, 128), generator=seeded(1), device=dev)
+    cg = f20.clause_graph
+    n_seg = f20.G + 1
+
+    def graphs_by_index_add():
+        return torch.zeros((n_seg, 128), device=dev).index_add_(
+            0, cg, clause_rows)
+
+    def graphs_by_segment_reduce():
+        offsets = torch.searchsorted(cg, torch.arange(
+            n_seg + 1, dtype=cg.dtype, device=dev))
+        return torch.segment_reduce(clause_rows, "sum", offsets=offsets,
+                                    axis=0, unsafe=True)
+
+    def graphs_by_one_hot():
+        one_hot = (cg[None, :] == torch.arange(
+            n_seg, dtype=cg.dtype, device=dev)[:, None]).float()
+        return one_hot @ clause_rows
+
+    def graphs_by_blocks():
+        return graph_ops.segment_sum(clause_rows, cg, n_seg)
+
+    reductions = {}
+    for name, fn, ref in (
+            ("edges_index_add_", by_index_add, by_segment_reduce),
+            ("edges_segment_reduce", by_segment_reduce, by_segment_reduce),
+            ("edges_cumsum", by_cumsum, by_segment_reduce),
+            ("edges_blocks", by_blocks, by_segment_reduce),
+            ("graphs_index_add_", graphs_by_index_add,
+             graphs_by_segment_reduce),
+            ("graphs_segment_reduce", graphs_by_segment_reduce,
+             graphs_by_segment_reduce),
+            ("graphs_one_hot_mm", graphs_by_one_hot,
+             graphs_by_segment_reduce),
+            ("graphs_blocks", graphs_by_blocks, graphs_by_segment_reduce)):
+        a, b = fn(), fn()
+        reductions[name] = dict(
+            ms=tools["device_ms"](fn), runs_equal=bool(torch.equal(a, b)),
+            max_abs_err=float((a - ref()).abs().max()))
+    p1 = segsum.segsum_plain(x, plans20k.lit_to_clause)
+    p2 = segsum.segsum_plain(x, plans20k.lit_to_clause)
+    emit(phase="graphs_plain_reductions", batch="threshold3sat_20k",
+         F=128, edges=int(f20.edge_mask_c.sum()), clauses=f20.C,
+         graphs=int(f20.n_graphs), reductions=reductions,
+         segsum_plain_runs_equal=bool(torch.equal(p1, p2)))
+    if not reductions["edges_blocks"]["runs_equal"] or \
+            not reductions["graphs_blocks"]["runs_equal"] or \
+            not torch.equal(p1, p2):
+        raise RuntimeError("the plain segment sums differ between runs")
+
+    # -- dense mega-step: 8 graphed steps against 8 eager steps ------------
+    batches8 = [threshold_3sat_batch(rng, 20000)[0] for _ in range(8)]
+    dense8 = [d.to(dev) for d in densify_batches(batches8)]
+    chunk = stack_batches(dense8)
+    for bf16 in (False, True):
+        cfg = QuerySATConfig(block_bf16=bf16)
+        g = seeded(0)
+        p0 = query_sat_init(g, cfg)
+        opt = adabelief(learning_rate=cosine_decay_schedule(
+            1e-3, 167_000, 0.5), eps=1e-8, clip_gradients=True)
+        start = TrainState(params=p0, opt_state=opt.init(p0), step=0,
+                           generator=seeded(1))
+        with dense_ops.incidence_precision("default" if bf16 else
+                                           "highest"):
+            step = make_train_step_for(query_sat_dense_apply, cfg, opt, dev)
+            eager_state = clone_state(start)
+
+            def eager8():
+                nonlocal eager_state
+                losses = []
+                for b in dense8:
+                    eager_state, out = step(eager_state, b)
+                    losses.append(out["loss"])
+                return torch.stack(losses)
+
+            eager_wall, eager_losses = timed(eager8)
+            mega = make_scanned_train_step_for(query_sat_dense_apply, cfg,
+                                               opt, dev)
+            torch.cuda.reset_peak_memory_stats()
+            first_wall, (graph_state, out) = timed(
+                lambda: mega(clone_state(start), chunk))
+            peak = torch.cuda.max_memory_allocated()
+            n_diff, gen_equal, top = state_diffs(eager_state, graph_state)
+            loss_equal = bool(torch.equal(eager_losses,
+                                          out["loss_per_step"]))
+            # the eager 8 steps above and one replay; the busy time of one
+            # eager step and of one replay
+            walls = {"eager": eager_wall / 8,
+                     "graph": timed(lambda: mega(graph_state, chunk))[0] / 8}
+            eager_prof = busy_of(lambda: step(clone_state(eager_state),
+                                              dense8[0]))
+            graph_prof = [x / 8 for x in
+                          busy_of(lambda: mega(graph_state, chunk))]
+        emit(phase="graphs_dense_mega_step", block_bf16=bf16, steps=8,
+             batch_shape=(dense8[0].G, dense8[0].Vg, dense8[0].Cg),
+             differing_entries=n_diff, max_abs_diff=top,
+             generator_equal=gen_equal, losses_equal=loss_equal,
+             losses=out["loss_per_step"].tolist(),
+             eager_first_wall_s=eager_wall,
+             graph_first_call_s=first_wall,
+             wall_ms_per_step={k: v * 1e3 for k, v in walls.items()},
+             busy_ms_per_step={"eager": eager_prof[0] * 1e3,
+                               "graph": graph_prof[0] * 1e3},
+             busy_share={"eager": eager_prof[0] / walls["eager"],
+                         "graph": graph_prof[0] / walls["graph"]},
+             kernels_per_step={"eager": eager_prof[1],
+                               "graph": graph_prof[1]},
+             peak_memory_gib=peak / 2 ** 30)
+        if n_diff or not gen_equal or not loss_equal:
+            raise RuntimeError(f"dense mega-step (bf16={bf16}) differs from "
+                               f"8 eager steps: {n_diff} entries, generator "
+                               f"equal {gen_equal}, losses equal "
+                               f"{loss_equal}")
+        del mega, graph_state, eager_state, start
+
+    # -- ANF flat mega-step: 4 graphed steps against 4 eager ones ----------
+    p = argparse.ArgumentParser()
+    anf_eval.add_data_args(p, train_size=8000, test_size=256)
+    anf_args = p.parse_args(["--data_dir", str(data_dir), "--train_size",
+                             str(ANF_TRAIN_SIZE), "--test_size",
+                             str(ANF_SCRIPT_TEST_SIZE)])
+    anf_batches = anf_eval.build_anf_dataset(anf_args).train_data()[:4]
+    anf_cfg = ANFSATConfig()
+    pairs = [(b, build_plans(b, pad=True)) for b in anf_batches]
+    anf_chunk = tuple(t.to(dev) for t in stack_batches(pairs))
+    pairs = [(b.to(dev), pl.to(dev)) for b, pl in pairs]
+    opt = adabelief(learning_rate=1e-3, clip_gradients=True)
+    a0 = anf_sat_init(seeded(0), anf_cfg)
+    start = TrainState(params=a0, opt_state=opt.init(a0), step=0,
+                       generator=seeded(1))
+    step = make_planned_train_step_for(anf_sat_apply, anf_cfg, opt,
+                                       device=dev)
+    eager_state = clone_state(start)
+
+    def eager4():
+        nonlocal eager_state
+        losses = []
+        for b, pl in pairs:
+            eager_state, out = step(eager_state, b, pl)
+            losses.append(out["loss"])
+        return torch.stack(losses)
+
+    # two eager runs from one state: every sum of the flat step takes one
+    # fixed order, so they must agree bit for bit, and the graph with them
+    _, again_losses = timed(eager4)
+    again, eager_state = eager_state, clone_state(start)
+    segsum.reset_launch_counts()
+    eager_wall, eager_losses = timed(eager4)
+    eager_launches = dict(segsum.LAUNCHES)
+    eager_spread = state_diffs(eager_state, again)
+    mega = make_scanned_train_step_for(anf_sat_apply, anf_cfg, opt, dev)
+    segsum.reset_launch_counts()
+    first_wall, (graph_state, out) = timed(
+        lambda: mega(clone_state(start), anf_chunk))
+    graph_launches = dict(segsum.LAUNCHES)
+    n_diff, gen_equal, top = state_diffs(eager_state, graph_state)
+    loss_equal = bool(torch.equal(eager_losses, out["loss_per_step"]))
+    walls = {"eager": eager_wall / 4,
+             "graph": timed(lambda: mega(graph_state, anf_chunk))[0] / 4}
+    eager_prof = busy_of(lambda: step(clone_state(eager_state), *pairs[0]))
+    graph_prof = [x / 4 for x in
+                  busy_of(lambda: mega(graph_state, anf_chunk))]
+    emit(phase="graphs_anf_mega_step", steps=4,
+         train_rounds=anf_cfg.train_rounds, differing_entries=n_diff,
+         max_abs_diff=top, generator_equal=gen_equal,
+         losses_equal=loss_equal, losses=out["loss_per_step"].tolist(),
+         eager_losses=eager_losses.tolist(),
+         eager_against_eager=dict(differing_entries=eager_spread[0],
+                                  max_abs_diff=eager_spread[2],
+                                  losses_equal=bool(torch.equal(
+                                      again_losses, eager_losses))),
+         launches_eager=eager_launches,
+         launches_graph=graph_launches, graph_first_call_s=first_wall,
+         wall_ms_per_step={k: v * 1e3 for k, v in walls.items()},
+         busy_ms_per_step={"eager": eager_prof[0] * 1e3,
+                           "graph": graph_prof[0] * 1e3},
+         busy_share={"eager": eager_prof[0] / walls["eager"],
+                     "graph": graph_prof[0] / walls["graph"]})
+    if n_diff or eager_spread[0] or not gen_equal or not loss_equal:
+        raise RuntimeError(f"ANF mega-step differs from 4 eager steps: "
+                           f"{n_diff} entries up to {top} (eager from "
+                           f"eager: {eager_spread[0]}), generator equal "
+                           f"{gen_equal}, losses equal {loss_equal}")
+    if graph_launches != eager_launches:
+        raise RuntimeError(f"ANF mega-step launches {graph_launches}, "
+                           f"eager {eager_launches}")
+    del mega, graph_state, eager_state
+
+    # -- graphed rounds against eager rounds -------------------------------
+    tree, meta = load_params(CKPT)
+    params = params_from_numpy(tree, dev)
+    cfg64 = QuerySATConfig(test_rounds=64)
+    eval_batch = solve_eval.build_dataset(
+        60000, 2000, 3, 30, seed=0, data_dir=data_dir).test_data()
+    eval_batch = list(eval_batch)[0]
+    cases = {"solve_eval_flat": (query_sat_apply, eval_batch.to(dev),
+                                 build_plans(eval_batch, pad=True).to(dev)),
+             "solve_eval_dense": (query_sat_dense_apply,
+                                  densify_batches_quantized([eval_batch])[0]
+                                  .to(dev), None)}
+
+    def compare(name, run, profiled):
+        """run() eagerly and graphed: results and launches must be equal;
+        walls, and with `profiled` the busy shares."""
+        outs, launches, walls, profs = {}, {}, {}, {}
+        for mode in ("eager", "graph"):
+            ctx = cuda_graphs.eager() if mode == "eager" else \
+                contextlib.nullcontext()
+            with ctx:
+                segsum.reset_launch_counts()
+                walls[mode] = [timed(run)[0]]
+                launches[mode] = dict(segsum.LAUNCHES)
+                wall, outs[mode] = timed(run)     # the graph captured
+                walls[mode].append(wall)
+                if profiled:
+                    profs[mode] = busy_of(run)
+        same = all(torch.equal(a, b) for a, b in zip(
+            cuda_graphs.tree_leaves(outs["eager"]),
+            cuda_graphs.tree_leaves(outs["graph"]), strict=True))
+        emit(phase="graphs_rounds", case=name, equal=same,
+             launches=launches, wall_s=walls,
+             busy_ms={m: p[0] * 1e3 for m, p in profs.items()},
+             busy_share={m: p[0] / walls[m][1] for m, p in profs.items()},
+             kernels={m: p[1] for m, p in profs.items()})
+        if not same:
+            raise RuntimeError(f"graphed rounds ({name}) differ from eager")
+        if launches["eager"] != launches["graph"]:
+            raise RuntimeError(f"graphed rounds ({name}) launched "
+                               f"{launches['graph']}, eager "
+                               f"{launches['eager']}")
+
+    for name, (apply, batch, plans) in cases.items():
+        predict = make_predict_step(cfg64, apply, noise_scale=1.0,
+                                    device=dev)
+
+        def run(predict=predict, batch=batch, plans=plans):
+            out = predict(params, batch, seeded(1), plans=plans)
+            return out["prediction"], out["loss"], out["steps_taken"]
+
+        compare(name, run, profiled=True)
+    cfg32 = QuerySATConfig.from_meta(meta["config"], test_rounds=32)
+    for dense in (False, True):
+        def run(dense=dense):
+            sampler = DiffusionSampler(params, cfg32, CNF.load(UF20),
+                                       diffusion_steps=4, test_rounds=32,
+                                       dense=dense, seed=0, device=dev)
+            counts = sampler.samples(64, max_batches=1)
+            return [torch.tensor(sorted(counts.items()))]
+
+        compare(f"sampler_uf20_{'dense' if dense else 'flat'}", run,
+                profiled=False)
+    cuda_graphs.clear_round_graphs()
+
+    # -- a cut bench run: one window, one pass, 8 steps a replay ----------
+    env = {"DSAT_MEGA_STEPS": "8", "DSAT_BENCH_WINDOWS": "1"}
+    old = {k: os.environ.get(k) for k in (*env, "DSAT_BLOCK_BF16")}
+    try:
+        os.environ.update(env)
+        for bf16 in ("0", "1"):
+            os.environ["DSAT_BLOCK_BF16"] = bf16
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                res = bench.main(["--cycles", "1", "--n_batches", "1"])
+            emit(phase="graphs_bench",
+                 cut="1 window of 1 pass over 1 batch's worth", **res)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def main(argv: list[str]) -> int:
     import torch
 
-    if argv not in ([], ["--only-anf"]):
-        print("usage: chip_smoke.py [--only-anf]", file=sys.stderr)
+    if argv not in ([], ["--only-anf"], ["--only-graphs"]):
+        print("usage: chip_smoke.py [--only-anf | --only-graphs]",
+              file=sys.stderr)
         return 2
     only_anf = argv == ["--only-anf"]
+    only_graphs = argv == ["--only-graphs"]
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -962,6 +1390,32 @@ def main(argv: list[str]) -> int:
         end.synchronize()
         return start.elapsed_time(end) / (iters * reps)
 
+    def event_ms(fn, iters=20, reps=5):
+        """Mean ms per call from CUDA events around back-to-back calls,
+        launch cost included: for a library call that a graph cannot
+        capture."""
+        for _ in range(3):
+            fn()
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters * reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / (iters * reps)
+
+    def library_times(fn):
+        """`library_ms` of one library call, from a graph where the call
+        can be captured, else from events (`library_timing` says which)."""
+        try:
+            return dict(library_ms=device_ms(fn), library_timing="graph")
+        except RuntimeError as e:
+            sync()
+            return dict(library_ms=event_ms(fn), library_timing="events",
+                        library_capture_error=str(e)[:200])
+
     def kernel_row(plan, F, gen):
         """The kernel against its plain version on `plan` at width F, on a
         random input: the max-abs error (which must lie within KERNEL_TOL),
@@ -984,6 +1438,14 @@ def main(argv: list[str]) -> int:
             # index_add_ into the segments
             acc.zero_().index_add_(0, seg, x.index_select(0, plan.gather))
 
+        # the same function as one library call: the plan as a CSR matrix
+        # of ones, times x (cuSPARSE's SpMM)
+        csr = torch.sparse_csr_tensor(
+            plan.row_ptr.long(), plan.gather[:E].long(),
+            torch.ones(E, device=dev), size=(M, plan.num_sources))
+        sparse = torch.sparse.mm(csr, x)
+        torch.testing.assert_close(sparse, want, **KERNEL_TOL)
+
         # each input read once (x, row_ptr, gather), the output written
         # once; E * F additions
         N = plan.num_sources
@@ -993,7 +1455,8 @@ def main(argv: list[str]) -> int:
         row = dict(
             ms=device_ms(lambda: segsum.gather_segsum(x, plan)),
             plain_ms=device_ms(lambda: segsum.segsum_plain(x, plan)),
-            library_ms=device_ms(library_call),
+            **library_times(lambda: torch.sparse.mm(csr, x)),
+            library_index_ms=device_ms(library_call),
             bound_ms=bound_s * 1e3,
             bound_by=("bytes" if nbytes / H100_BYTES_PER_S >=
                       ops / H100_F32_OPS_PER_S else "operations"),
@@ -1040,6 +1503,12 @@ def main(argv: list[str]) -> int:
                  profile=profile, activities=[ProfilerActivity.CPU,
                                               ProfilerActivity.CUDA],
                  cuda_kernels=cuda_kernels, dev_us=dev_us)
+    if only_graphs:
+        graphs_phase(dev, data_dir, tools)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if only_anf:
         anf = anf_phase(dev, data_dir, tools)
         print(json.dumps({"kernels": anf["kernels"]}), flush=True)
@@ -1529,6 +1998,12 @@ def main(argv: list[str]) -> int:
         if err > TRAIN_GRAD_TOL:
             raise RuntimeError(
                 f"{rounds}-round training gradients differ: {err}")
+    # the plain path sums in one fixed order: it must equal itself
+    for kind, errs in (("pinned", pinned), ("free", free)):
+        for rounds, (_, spread) in errs.items():
+            if spread != 0.0:
+                raise RuntimeError(f"the plain path differs from itself "
+                                   f"({kind}, {rounds} rounds): {spread}")
     if any(rp["forward_launches"].values()) or \
             any(rp["backward_launches"].values()):
         raise RuntimeError("the plain path launched the kernel")
@@ -1765,6 +2240,7 @@ def main(argv: list[str]) -> int:
 
     uni_launches = uniformity_phase(dev, data_dir, sync, busy_seconds)
     anf = anf_phase(dev, data_dir, tools)
+    graphs_phase(dev, data_dir, tools)
 
 
     # one row per kernel: times at the sampler's shapes, launches of the

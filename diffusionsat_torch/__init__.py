@@ -8,10 +8,12 @@ asks for the CPU, where every hand-written kernel's wrapper runs the
 kernel's plain PyTorch version instead.
 
 Ported so far: the reverse-diffusion sampler (flat and dense chains), the
-solving eval, and training (AdaBelief, the train steps of both layouts,
-checkpoints and the ``diffusion_training`` script) of QuerySAT, with the
-flat layout's literal-clause SpMM pair, forward and backward, on a CUDA
-kernel (``csrc/segsum.cu``).
+solving eval, training (AdaBelief, the train steps of both layouts,
+checkpoints and the ``diffusion_training`` script), the uniformity battery
+and the bank measurement, the ANF path (``anf_eval``, ``anf_training``),
+many steps per dispatch as CUDA graphs (``cuda_graphs``, ``--mega_steps``)
+and the bench (``bench``). The flat layout's segment sums, forward and
+backward, run on a CUDA kernel (``csrc/segsum.cu``).
 """
 
 __version__ = "0.1.0"

@@ -20,6 +20,12 @@ Two execution layouts, as in that package:
   the membership sums and the AND scatter, and their backwards, run on the
   segsum kernel.
 
+`--mega_steps N` (N > 1) cuts the batch stream into chunks of N steps, each
+one CUDA graph replay on the card (`train/loop.make_scanned_train_step_for`)
+over the flat layout: the plans are padded to the bucket, so every chunk of
+N batches has one shape. The tiles are turned off under mega-steps, with
+the TPU package's warning.
+
 Evals run flat through the kernel. The run directory gets
 `train_log.jsonl`, `ckpt/` and, at the end, `params.npz`, the portable
 params file that either package's `anf_eval` reads.
@@ -56,9 +62,12 @@ from diffusionsat_torch.train.checkpoint import (
 )
 from diffusionsat_torch.train.loop import (
     TrainState,
+    build_plans,
     evaluate_metrics,
     make_planned_train_step_for,
+    make_scanned_train_step_for,
     plan_batches,
+    stack_batches,
     train,
 )
 from diffusionsat_torch.train.metrics import ANFAccuracy
@@ -86,15 +95,11 @@ def main(argv=None):
                    help="CE weight multiplier on free message-bit input "
                         "vars (the circuit's true degrees of freedom)")
     p.add_argument("--mega_steps", type=int, default=0,
-                   help="N steps per device dispatch; not ported (ROADMAP "
-                        "Queue 1 item 5). 0/1 = off")
+                   help="N steps per device dispatch (one CUDA graph "
+                        "replay on the card, flat layout); 0/1 = off")
     p.add_argument("--label", default="")
     p.add_argument("--train_dir", default="runs_anf")
     args = p.parse_args(argv)
-    if args.mega_steps > 1:
-        raise NotImplementedError(
-            "--mega_steps (many steps per dispatch, e.g. a CUDA graph) waits "
-            "for the ROADMAP Queue 1 item 5")
     dev = resolve_device(args.device)
 
     ds = build_anf_dataset(args)
@@ -148,9 +153,24 @@ def main(argv=None):
               flush=True)
 
     # every batch on the device once: flat with its kernel plans, or with
-    # its tiles (host-built one batch at a time, then moved)
+    # its tiles (host-built one batch at a time, then moved); mega-steps
+    # stack N batches with their padded plans into one chunk
     tiled = os.environ.get("DSAT_ANF_TILED", "1") == "1"
-    if tiled:
+    mega_div = 1
+    if tiled and args.mega_steps > 1:
+        print("WARNING: DSAT_ANF_TILED ignored with --mega_steps > 1",
+              flush=True)
+        tiled = False
+    if args.mega_steps > 1:
+        n = args.mega_steps
+        pairs = [(b, build_plans(b, pad=True)) for b in train_batches]
+        train_items = [
+            tuple(t.to(dev) for t in stack_batches(pairs[i:i + n]))
+            for i in range(0, len(pairs), n)]
+        mega_div = n
+        print(f"mega-steps: {len(train_items)} chunks of <= {n} "
+              f"steps/dispatch", flush=True)
+    elif tiled:
         t0 = time.time()
         train_items = [(b.to(dev), build_anf_tiles(b).to(dev))
                        for b in train_batches]
@@ -161,12 +181,15 @@ def main(argv=None):
         train_items = plan_batches(train_batches, dev)
     test_planned = plan_batches(test_batches, dev)
     print("ANF batches device-cached", flush=True)
-    planned_step = make_planned_train_step_for(
-        anf_sat_apply, cfg, opt, plan_kw="tiles" if tiled else "plans",
-        device=dev)
+    if args.mega_steps > 1:
+        step_fn = make_scanned_train_step_for(anf_sat_apply, cfg, opt, dev)
+    else:
+        planned_step = make_planned_train_step_for(
+            anf_sat_apply, cfg, opt, plan_kw="tiles" if tiled else "plans",
+            device=dev)
 
-    def step_fn(st, pair):
-        return planned_step(st, pair[0], pair[1])
+        def step_fn(st, pair):
+            return planned_step(st, pair[0], pair[1])
 
     def eval_fn(st, max_batches=16):
         g = torch.Generator(device=dev)
@@ -175,12 +198,17 @@ def main(argv=None):
                                 [ANFAccuracy()], g, max_batches=max_batches,
                                 apply_fn=anf_sat_apply, device=dev)
 
+    # a chunk advances at least one step, so `remaining` calls suffice;
+    # target_step stops at the real optimizer-step budget, cutting the last
+    # chunk to it. Evals and checkpoints come every `.. // mega_div` calls
     remaining = max(args.train_steps - state.step, 0)
     state = train(state, step_fn, ds.repeat_shuffled(train_items),
-                  steps=remaining, target_step=args.train_steps,
-                  eval_fn=eval_fn, eval_every=max(1, args.eval_every),
+                  steps=remaining,
+                  target_step=args.train_steps,
+                  eval_fn=eval_fn,
+                  eval_every=max(1, args.eval_every // mega_div),
                   checkpoint_fn=mgr.save,
-                  ckpt_every=max(1, args.eval_every * 2),
+                  ckpt_every=max(1, args.eval_every * 2 // mega_div),
                   log_file=run_dir / "train_log.jsonl")
     mgr.save(state)
     # the headline number: the whole held-out split, not the 16-batch

@@ -89,8 +89,8 @@ class RunConfig:
     # train on only the first N cached batches (0 = all): keeps a
     # closed-loop fine-tune inside the measured subset of the cache
     train_batch_limit: int = 0
-    # N training steps per device dispatch; 0/1 = off. The port has no
-    # such step yet (ROADMAP Queue 1, item 5): a value above 1 raises.
+    # N training steps per device dispatch (one CUDA graph replay on the
+    # card) on a dense-only, supervised stream; 0/1 = off
     mega_steps: int = 0
 
     # execution layout: dense per-graph blocks (graph/dense_batch.py) when

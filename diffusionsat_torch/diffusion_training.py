@@ -21,6 +21,13 @@ Two execution layouts:
   with its `BatchPlans`, so the literal-clause aggregations and their
   backwards run on the segsum kernel.
 
+`--mega_steps N` (N > 1) runs N optimizer steps per dispatch on a
+dense-only, single-device, supervised stream, as the TPU package does: the
+dense batches are grouped by shape (G, Vg, Cg and which label fields they
+carry), each group is cut into stacks of at most N, and each stack is one
+CUDA graph replay on the card (`train/loop.make_scanned_train_step_for`).
+Other streams print the TPU package's warning and run one step a call.
+
 The run directory gets `config.json`, `train_log.jsonl`, `tb/`, `ckpt/`
 and, at the end, `params.npz`, the portable params file that the samplers
 and evals of both packages load.
@@ -80,9 +87,11 @@ from diffusionsat_torch.train.loop import (
     evaluate_metrics,
     make_diagnostics_step,
     make_planned_train_step,
+    make_scanned_train_step_for,
     make_selfsupervised_train_step,
     make_train_step_for,
     plan_batches,
+    stack_batches,
     train,
 )
 from diffusionsat_torch.train.metrics import SATAccuracy, StepStatistics
@@ -99,10 +108,6 @@ def _check_ported(cfg: RunConfig) -> None:
         raise NotImplementedError(
             "--n_devices > 1 waits for the ROADMAP Queue 1 item 11 "
             "'Multi-device'")
-    if cfg.mega_steps > 1:
-        raise NotImplementedError(
-            "--mega_steps (many steps per dispatch, e.g. a CUDA graph) waits "
-            "for the ROADMAP Queue 1 item 5")
     _flat_backend()
 
 
@@ -153,6 +158,24 @@ def _split_dense(batches: list[SatBatch]
     if not dense_batches:
         raise ValueError("no batch fits the dense block tables")
     return dense_batches, flat_rest
+
+
+def _shape_group(b: DenseSatBatch) -> tuple:
+    """The stacking key of a dense batch: its block shape and which label
+    fields it carries."""
+    return (b.G, b.Vg, b.Cg, b.solutions_k is not None,
+            b.label_isolation_k is not None)
+
+
+def _mega_chunks(batches: list[DenseSatBatch], n: int) -> list:
+    """The dense batches grouped by `_shape_group` (in order of first
+    appearance) and each group cut into stacks of at most `n`, as the TPU
+    package's driver chunks them."""
+    groups: dict = {}
+    for b in batches:
+        groups.setdefault(_shape_group(b), []).append(b)
+    return [stack_batches(bs[i:i + n]) for bs in groups.values()
+            for i in range(0, len(bs), n)]
 
 
 def main(argv=None):
@@ -254,6 +277,7 @@ def _run(cfg: RunConfig, dev: torch.device) -> dict:
     # device once.
     train_step = None
     diag_apply = query_sat_apply
+    mega_chunks = None
     if cfg.dense:
         try:
             dense_batches, flat_rest = _split_dense(train_data.batches)
@@ -261,6 +285,17 @@ def _run(cfg: RunConfig, dev: torch.device) -> dict:
             print(f"dense layout unavailable ({e}); flat path", flush=True)
             cfg = dataclasses.replace(cfg, dense=False)
     if cfg.dense:
+        if cfg.mega_steps > 1 and not cfg.self_supervised and not flat_rest:
+            # N-step chunks of same-shape batches, stacked on the host
+            mega_chunks = _mega_chunks(dense_batches, cfg.mega_steps)
+            print(f"mega-steps: {len(mega_chunks)} chunks "
+                  f"(<= {cfg.mega_steps} steps/dispatch, "
+                  f"{len({_shape_group(b) for b in dense_batches})} shape "
+                  "groups)", flush=True)
+            mega_chunks = [c.to(dev) for c in mega_chunks]
+        elif cfg.mega_steps > 1:
+            print("WARNING: --mega_steps needs a dense-only, "
+                  "single-device, supervised stream; ignored", flush=True)
         dense_batches = [b.to(dev) for b in dense_batches]
         if _flat_backend() == "tiled" and flat_rest:
             planned_rest = [(b.to(dev), build_tiled_incidence(b).to(dev))
@@ -280,6 +315,10 @@ def _run(cfg: RunConfig, dev: torch.device) -> dict:
                       f"{len(flat_rest)} over-cutoff batches excluded",
                       flush=True)
             stream_batches = dense_batches
+        elif mega_chunks is not None:
+            train_step = make_scanned_train_step_for(
+                query_sat_dense_apply, model_cfg, optimizer, dev)
+            stream_batches = mega_chunks
         else:
             dense_step = make_train_step_for(query_sat_dense_apply,
                                              model_cfg, optimizer, dev)
@@ -298,6 +337,9 @@ def _run(cfg: RunConfig, dev: torch.device) -> dict:
         shapes = sorted({(d.G, d.Vg, d.Cg) for d in dense_batches})
         print(f"dense layout shapes (G, Vg, Cg): {shapes}", flush=True)
     else:
+        if cfg.mega_steps > 1:
+            print("WARNING: --mega_steps needs a dense-only, "
+                  "single-device, supervised stream; ignored", flush=True)
         planned_train = plan_batches(train_data.batches, dev)
         stream_batches = [b for b, _ in planned_train]
         plans_of = {id(b): p for b, p in planned_train}
@@ -312,7 +354,10 @@ def _run(cfg: RunConfig, dev: torch.device) -> dict:
 
     # periodic in-model diagnostics on a fixed train batch
     diag_fn = make_diagnostics_step(model_cfg, diag_apply, device=dev)
-    diag_batch = train_stream.batches[0]
+    # under mega-steps the stream holds stacked chunks; diagnostics run on
+    # one batch
+    diag_batch = dense_batches[0] if mega_chunks is not None \
+        else train_stream.batches[0]
     diag_plans = None if isinstance(diag_batch, DenseSatBatch) \
         else plans_of[id(diag_batch)]
 
@@ -336,12 +381,19 @@ def _run(cfg: RunConfig, dev: torch.device) -> dict:
     tb = TBWriter(run_dir / "tb")
     tb.hparams(dataclasses.asdict(cfg))
 
+    # with mega-steps each call advances up to `mega_div` real steps
+    # (trailing partial chunks fewer, and at least one): `remaining` calls
+    # always suffice, and target_step stops the loop at the real
+    # optimizer-step budget, cutting the last chunk to it. Evals and
+    # checkpoints come every `.. // mega_div` calls, as in the TPU package
+    mega_div = cfg.mega_steps if mega_chunks is not None else 1
     remaining = max(cfg.train_steps - state.step, 0)
     state = train(
         state, train_step, data_stream, steps=remaining,
         target_step=cfg.train_steps,
-        eval_fn=eval_fn, eval_every=max(1, cfg.eval_every),
-        checkpoint_fn=mgr.save, ckpt_every=max(1, cfg.ckpt_every),
+        eval_fn=eval_fn, eval_every=max(1, cfg.eval_every // mega_div),
+        checkpoint_fn=mgr.save,
+        ckpt_every=max(1, cfg.ckpt_every // mega_div),
         log_file=run_dir / "train_log.jsonl", tb_writer=tb)
     mgr.save(state)
     final = eval_fn(state)

@@ -22,7 +22,11 @@ from __future__ import annotations
 import torch
 
 from diffusionsat_torch.graph.anf_batch import ANFBatch
-from diffusionsat_torch.ops.graph_ops import clause_segment_sum, segment_sum
+from diffusionsat_torch.ops.graph_ops import (
+    clause_segment_sum,
+    gather_rows,
+    segment_sum,
+)
 from diffusionsat_torch.ops.segsum import (
     ANFPlans,
     plan_clause_to_node,
@@ -39,7 +43,7 @@ def seg_to_clause(x_nodes: torch.Tensor, batch: ANFBatch,
     """Sum node features over each clause's members: [1+V+A, F] -> [C, F]."""
     if plans is not None:
         return plan_node_to_clause(x_nodes, plans)
-    g = x_nodes.index_select(0, batch.edge_node_c) * \
+    g = gather_rows(x_nodes, batch.edge_node_c) * \
         batch.edge_mask_c[:, None]
     return segment_sum(g, batch.edge_clause_c, batch.C)
 
@@ -49,7 +53,7 @@ def seg_to_nodes(x_clauses: torch.Tensor, batch: ANFBatch,
     """Sum clause features over each node's clauses: [C, F] -> [1+V+A, F]."""
     if plans is not None:
         return plan_clause_to_node(x_clauses, plans)
-    g = x_clauses.index_select(0, batch.edge_clause_n) * \
+    g = gather_rows(x_clauses, batch.edge_clause_n) * \
         batch.edge_mask_n[:, None]
     return segment_sum(g, batch.edge_node_n, batch.n_value_nodes)
 
@@ -91,8 +95,8 @@ def anf_value_real(logits: torch.Tensor, batch: ANFBatch,
     n_maps = logits.shape[-1]
     one = -torch.ones((1, n_maps), dtype=logits.dtype, device=logits.device)
     values = torch.cat([one, torch.tanh(logits)], dim=0)       # [1+V, K]
-    ands1 = values.index_select(0, batch.and1)                 # [A, K]
-    ands2 = values.index_select(0, batch.and2)
+    ands1 = gather_rows(values, batch.and1)                 # [A, K]
+    ands2 = gather_rows(values, batch.and2)
     values_ands = torch.cat([values, real_and(ands1, ands2)], dim=0)
     log_val = torch.log(torch.abs(values_ands) + 1e-16)
     signs = (1 - torch.sign(values_ands)) / 2
@@ -140,8 +144,8 @@ def anf_value_cplx(logits: torch.Tensor, batch: ANFBatch,
     if use_norm:
         values = cplx_normalize(values)
     values = torch.cat([one, values], dim=0)                   # [1+V, 2K]
-    ands1 = values.index_select(0, batch.and1)
-    ands2 = values.index_select(0, batch.and2)
+    ands1 = gather_rows(values, batch.and1)
+    ands2 = gather_rows(values, batch.and2)
     and_real0, and_im0 = cplx_and(ands1, ands2)
     val_real, val_im = torch.chunk(values, 2, dim=-1)
     and_real = torch.cat([val_real, and_real0], dim=0)         # [1+V+A, K]

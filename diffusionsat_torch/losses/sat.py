@@ -78,8 +78,8 @@ def softplus_mixed_loss(logits: torch.Tensor, batch: SatBatch,
     """linear * log loss product."""
     v = softplus_loss(logits, batch)
     # log(1 + eps) rounded through f32, as the TPU package computes it
-    log_one = torch.log(torch.tensor(1 + eps, dtype=v.dtype,
-                                     device=v.device))
+    log_one = torch.log(torch.full((), 1 + eps, dtype=v.dtype,
+                                   device=v.device))
     log_clauses = -(torch.log(1 - v + eps) - log_one)
     return v * log_clauses
 

@@ -19,7 +19,8 @@ scatter run one of three ways:
   scatter;
 - neither: gather and `index_add_`.
 
-With `training=True` every round is recomputed in the backward
+In inference on the card each round is a CUDA graph, replayed
+(`cuda_graphs.run_rounds`). With `training=True` every round is recomputed in the backward
 (`torch.utils.checkpoint`), as the TPU package checkpoints its round body;
 the per-round noise is drawn outside the round and passed in, so the
 recomputed round sees the same noise. `round_noise` ([rounds, V, 4])
@@ -33,6 +34,7 @@ import dataclasses
 import torch
 from torch.utils import checkpoint as torch_checkpoint
 
+from diffusionsat_torch import cuda_graphs
 from diffusionsat_torch.device import resolve_device
 from diffusionsat_torch.graph.anf_batch import ANFBatch
 from diffusionsat_torch.losses.anf import (
@@ -48,7 +50,7 @@ from diffusionsat_torch.nn.normalization import (
     pair_norm_clauses,
     pair_norm_vars,
 )
-from diffusionsat_torch.ops.graph_ops import clause_segment_sum
+from diffusionsat_torch.ops.graph_ops import clause_segment_sum, gather_rows
 from diffusionsat_torch.ops.segsum import ANFPlans, plan_and_to_var
 from diffusionsat_torch.ops.tiled_ops import (
     TiledIncidence,
@@ -137,8 +139,8 @@ def _zero_state(n_units: int, n_features: int, device: torch.device,
     onehot = torch.zeros((n_units, n_features), device=device)
     onehot[:, 0] = 1.0
     onehot = onehot - 1.0 / n_features
-    return onehot * torch.sqrt(torch.tensor(float(n_features),
-                                            device=device)) * stddev
+    return onehot * torch.sqrt(torch.full((), float(n_features),
+                                          device=device)) * stddev
 
 
 def anf_sat_apply(params: dict, cfg: ANFSATConfig, batch: ANFBatch,
@@ -189,32 +191,13 @@ def _anf_sat_apply(params, cfg, batch, generator, training, labels, rounds,
     clause_degree_weight = torch.rsqrt(
         torch.clamp(clause_degrees(batch), min=1.0))
 
-    if tiles is not None:
-        def to_clauses(x_nodes):
-            return tiled_lit_to_clause(x_nodes, tiles)
-
-        def to_nodes(x_clauses):
-            return tiled_clause_to_lit(x_clauses, tiles)
-    else:
-        def to_clauses(x_nodes):
-            return seg_to_clause(x_nodes, batch, plans)
-
-        def to_nodes(x_clauses):
-            return seg_to_nodes(x_clauses, batch, plans)
-
     # AND operand variable rows, 0-based into [V] (operands are never the
     # constant in the generated systems; clamped anyway)
     a1_var = torch.clamp(batch.and1 - 1, min=0)
     a2_var = torch.clamp(batch.and2 - 1, min=0)
 
-    def ands_to_vars(ands_value):
-        if plans is not None:
-            return plan_and_to_var(ands_value, plans)
-        z = ands_value.new_zeros((V, ands_value.shape[1]))
-        return z.index_add(0, a1_var, ands_value).index_add(0, a2_var,
-                                                            ands_value)
-
     supervised = cfg.supervised and labels is not None
+    smoothed = ce_w = None
     if supervised:
         smoothed = 0.5 * 0.1 + labels.to(dev, torch.float32)[:, None] * 0.9
         ce_w = batch.var_mask
@@ -223,100 +206,156 @@ def _anf_sat_apply(params, cfg, batch, generator, training, labels, rounds,
             ce_w = ce_w * (1.0 + (cfg.free_input_upweight - 1.0) *
                            batch.free_input_mask)
 
-    def round_body(variables, clause_state, loss_sum, noise4):
-        if cfg.use_query:
-            v1 = torch.cat([variables, noise4], dim=-1)
-            query = mlp_apply(params["variables_query"],
-                              mcfgs["variables_query"][0], v1)
-            clauses_real, clauses_im, _, _ = anf_value_cplx(
-                query, batch, tiles=tiles, plans=plans)
-            query_msg = torch.cat([clauses_real, clauses_im], dim=-1)
+    # every tensor a round reads besides its carry: a graphed round loop
+    # copies these into its buffers
+    ctx = dict(params=params, batch=batch, plans=plans, tiles=tiles,
+               degree_weight=degree_weight,
+               clause_degree_weight=clause_degree_weight, a1_var=a1_var,
+               a2_var=a2_var, smoothed=smoothed, ce_w=ce_w)
 
-        ands1 = variables.index_select(0, a1_var)          # [A, f]
-        ands2 = variables.index_select(0, a2_var)
+    def make_round(ctx):
+        params, batch = ctx["params"], ctx["batch"]
+        plans, tiles = ctx["plans"], ctx["tiles"]
+        degree_weight = ctx["degree_weight"]
+        clause_degree_weight = ctx["clause_degree_weight"]
+        a1_var, a2_var = ctx["a1_var"], ctx["a2_var"]
+        smoothed, ce_w = ctx["smoothed"], ctx["ce_w"]
 
-        if cfg.use_message_passing:
-            ands_data = mlp_apply(params["var2ands_mlp"],
-                                  mcfgs["var2ands_mlp"][0],
-                                  torch.cat([ands1, ands2], dim=-1))
-            var_data = mlp_apply(params["var2clause_mlp"],
-                                 mcfgs["var2clause_mlp"][0], variables)
-            node_data = torch.cat([params["zero_var"], var_data, ands_data],
-                                  dim=0)
-            clause_messages = to_clauses(node_data) * clause_degree_weight
-            parts = [clause_state, clause_messages]
+        if tiles is not None:
+            def to_clauses(x_nodes):
+                return tiled_lit_to_clause(x_nodes, tiles)
+
+            def to_nodes(x_clauses):
+                return tiled_clause_to_lit(x_clauses, tiles)
+        else:
+            def to_clauses(x_nodes):
+                return seg_to_clause(x_nodes, batch, plans)
+
+            def to_nodes(x_clauses):
+                return seg_to_nodes(x_clauses, batch, plans)
+
+        def ands_to_vars(ands_value):
+            if plans is not None:
+                return plan_and_to_var(ands_value, plans)
+            z = ands_value.new_zeros((V, ands_value.shape[1]))
+            return z.index_add(0, a1_var, ands_value).index_add(
+                0, a2_var, ands_value)
+
+        def round_body(variables, clause_state, loss_sum, noise4):
             if cfg.use_query:
-                parts.append(query_msg)
-            clause_unit = torch.cat(parts, dim=-1)
-        else:
-            clause_unit = torch.cat([clause_state, query_msg], dim=-1)
-        clause_data = mlp_apply(params["clause_mlp"], mcfgs["clause_mlp"][0],
-                                clause_unit)
+                v1 = torch.cat([variables, noise4], dim=-1)
+                query = mlp_apply(params["variables_query"],
+                                  mcfgs["variables_query"][0], v1)
+                clauses_real, clauses_im, _, _ = anf_value_cplx(
+                    query, batch, tiles=tiles, plans=plans)
+                query_msg = torch.cat([clauses_real, clauses_im], dim=-1)
 
-        loss_to_vars = clause_data[:, :Q]
-        new_clause_value = pair_norm_clauses(clause_data[:, Q:], batch) * 0.25
-        clause_state = new_clause_value + 0.1 * clause_state
+            ands1 = gather_rows(variables, a1_var)          # [A, f]
+            ands2 = gather_rows(variables, a2_var)
 
-        # clause -> node replies: the variable rows and the AND-node rows
-        nodes_loss = to_nodes(loss_to_vars) * degree_weight
-        variables_loss = nodes_loss[1:V + 1]
-        ands_loss = nodes_loss[1 + V:]
-        ands_value = mlp_apply(params["ands_mlp"], mcfgs["ands_mlp"][0],
-                               torch.cat([ands1, ands2, ands_loss], dim=-1))
-        ands_value = ands_value * batch.and_mask[:, None]
-        # each AND node's value goes back to both operand variables
-        variables_loss = variables_loss + ands_to_vars(ands_value)
+            if cfg.use_message_passing:
+                ands_data = mlp_apply(params["var2ands_mlp"],
+                                      mcfgs["var2ands_mlp"][0],
+                                      torch.cat([ands1, ands2], dim=-1))
+                var_data = mlp_apply(params["var2clause_mlp"],
+                                     mcfgs["var2clause_mlp"][0], variables)
+                node_data = torch.cat([params["zero_var"], var_data, ands_data],
+                                      dim=0)
+                clause_messages = to_clauses(node_data) * clause_degree_weight
+                parts = [clause_state, clause_messages]
+                if cfg.use_query:
+                    parts.append(query_msg)
+                clause_unit = torch.cat(parts, dim=-1)
+            else:
+                clause_unit = torch.cat([clause_state, query_msg], dim=-1)
+            clause_data = mlp_apply(params["clause_mlp"], mcfgs["clause_mlp"][0],
+                                    clause_unit)
 
-        new_variables = mlp_apply(params["update_gate"],
-                                  mcfgs["update_gate"][0],
-                                  torch.cat([variables, variables_loss],
-                                            dim=-1))
-        new_variables = pair_norm_vars(new_variables, batch) * 0.25
-        variables = new_variables + 0.1 * variables
+            loss_to_vars = clause_data[:, :Q]
+            new_clause_value = pair_norm_clauses(clause_data[:, Q:], batch) * 0.25
+            clause_state = new_clause_value + 0.1 * clause_state
 
-        logits = mlp_apply(params["variables_output"],
-                           mcfgs["variables_output"][0], variables)
-        if supervised:
-            ce = torch.relu(logits) - logits * smoothed + \
-                torch.log1p(torch.exp(-torch.abs(logits)))
-            logit_loss = torch.sum(ce * ce_w[:, None]) / \
-                torch.clamp(torch.sum(ce_w), min=1.0)
-        else:
-            neg2 = torch.cat([-logits, torch.zeros_like(logits)], dim=-1)
-            clauses_real, _, _, _ = anf_value_cplx(
-                neg2, batch, use_norm=True, tiles=tiles, plans=plans)
-            per_clause_loss = torch.square(1 - clauses_real) * \
-                batch.clause_mask[:, None]
-            per_graph_loss = clause_segment_sum(batch, per_clause_loss)
-            masked = torch.where(batch.graph_mask[:, None] > 0,
-                                 per_graph_loss + 1e-6, 0.0)
-            logit_loss = torch.sum(torch.sqrt(masked))
+            # clause -> node replies: the variable rows and the AND-node rows
+            nodes_loss = to_nodes(loss_to_vars) * degree_weight
+            variables_loss = nodes_loss[1:V + 1]
+            ands_loss = nodes_loss[1 + V:]
+            ands_value = mlp_apply(params["ands_mlp"], mcfgs["ands_mlp"][0],
+                                   torch.cat([ands1, ands2, ands_loss], dim=-1))
+            ands_value = ands_value * batch.and_mask[:, None]
+            # each AND node's value goes back to both operand variables
+            variables_loss = variables_loss + ands_to_vars(ands_value)
 
-        # the TPU package blends stop_gradient(x) * 0.2 + x * 0.8
-        variables = variables.detach() * 0.2 + variables * 0.8
-        clause_state = clause_state.detach() * 0.2 + clause_state * 0.8
-        return variables, clause_state, loss_sum + logit_loss, logits
+            new_variables = mlp_apply(params["update_gate"],
+                                      mcfgs["update_gate"][0],
+                                      torch.cat([variables, variables_loss],
+                                                dim=-1))
+            new_variables = pair_norm_vars(new_variables, batch) * 0.25
+            variables = new_variables + 0.1 * variables
 
+            logits = mlp_apply(params["variables_output"],
+                               mcfgs["variables_output"][0], variables)
+            if supervised:
+                ce = torch.relu(logits) - logits * smoothed + \
+                    torch.log1p(torch.exp(-torch.abs(logits)))
+                logit_loss = torch.sum(ce * ce_w[:, None]) / \
+                    torch.clamp(torch.sum(ce_w), min=1.0)
+            else:
+                neg2 = torch.cat([-logits, torch.zeros_like(logits)], dim=-1)
+                clauses_real, _, _, _ = anf_value_cplx(
+                    neg2, batch, use_norm=True, tiles=tiles, plans=plans)
+                per_clause_loss = torch.square(1 - clauses_real) * \
+                    batch.clause_mask[:, None]
+                per_graph_loss = clause_segment_sum(batch, per_clause_loss)
+                masked = torch.where(batch.graph_mask[:, None] > 0,
+                                     per_graph_loss + 1e-6, 0.0)
+                logit_loss = torch.sum(torch.sqrt(masked))
+
+            # the TPU package blends stop_gradient(x) * 0.2 + x * 0.8
+            variables = variables.detach() * 0.2 + variables * 0.8
+            clause_state = clause_state.detach() * 0.2 + clause_state * 0.8
+            return variables, clause_state, loss_sum + logit_loss, logits
+        return round_body
+
+    round_body = make_round(ctx)
     body = round_body
     if training:
         def body(*args):
+            # the noise is drawn outside the body: the recompute needs
+            # no saved RNG state
             return torch_checkpoint.checkpoint(round_body, *args,
-                                               use_reentrant=False)
+                                               use_reentrant=False,
+                                               preserve_rng_state=False)
 
-    def draw_noise(t):
+    def draw_noise(t, gen=generator):
         if not cfg.use_query:
             return None
         if round_noise is not None:
             return round_noise[t]
-        return torch.randn((V, 4), generator=generator, device=dev)
+        return torch.randn((V, 4), generator=gen, device=dev)
 
     variables = _zero_state(V, cfg.feature_maps, dev)
     clause_state = _zero_state(batch.C, cfg.feature_maps, dev)
     loss_sum = torch.zeros((), device=dev)
     logits = torch.zeros((V, 1), device=dev)
-    for t in range(rounds):
-        variables, clause_state, loss_sum, logits = body(
-            variables, clause_state, loss_sum, draw_noise(t))
+    if not training and rounds > 0 and cuda_graphs.graphs_enabled(dev):
+        # one CUDA graph of the round, replayed `rounds` times
+        def make_step(ctx):
+            round_body = make_round(ctx)
+
+            def step(carry, gen, noise):
+                if noise is None:
+                    noise = draw_noise(None, gen)
+                return round_body(*carry[:3], noise)
+            return step
+
+        variables, clause_state, loss_sum, logits = cuda_graphs.run_rounds(
+            make_step, ("anf_sat", cfg, str(dev)), ctx,
+            (variables, clause_state, loss_sum, logits), rounds, generator,
+            round_noise if cfg.use_query else None)
+    else:
+        for t in range(rounds):
+            variables, clause_state, loss_sum, logits = body(
+                variables, clause_state, loss_sum, draw_noise(t))
     loss = loss_sum / float(rounds)
-    steps = torch.tensor(rounds - 1, dtype=torch.int32, device=dev)
+    steps = torch.full((), rounds - 1, dtype=torch.int32, device=dev)
     return logits, loss, steps, {}

@@ -18,6 +18,10 @@ caller differentiates the returned loss wrt the params), runs
 - With `plans` (ops/segsum.BatchPlans) the four literal-clause
   aggregations of a round run on the hand-written CUDA kernel, and so do
   their backwards (each direction's backward is the other direction).
+- In inference on the card each round is a CUDA graph, captured once per
+  shape and replayed (`cuda_graphs.run_rounds`; `DSAT_EAGER=1` runs the
+  eager loop): the round reads its carry and a `ctx` of every other tensor
+  it needs, which the graph keeps in buffers.
 - `cfg.remat` trades memory for recomputation in training: "full"
   checkpoints each round, "dots" keeps the matrix products' outputs and
   recomputes the rest. The per-round noise is drawn outside the round body
@@ -33,6 +37,7 @@ import torch
 from torch.utils import _pytree as pytree
 from torch.utils import checkpoint as torch_checkpoint
 
+from diffusionsat_torch import cuda_graphs
 from diffusionsat_torch.device import resolve_device
 from diffusionsat_torch.diffusion.schedule import (
     add_t_emb,
@@ -60,6 +65,7 @@ from diffusionsat_torch.ops.graph_ops import (
     literal_degrees,
     var_segment_sum,
 )
+from diffusionsat_torch.ops.lowp import weak
 from diffusionsat_torch.ops.segsum import (
     BatchPlans,
     plan_clause_to_lit,
@@ -164,8 +170,11 @@ def remat_body(cfg: QuerySATConfig, training: bool, body):
             torch_checkpoint.create_selective_checkpoint_contexts(ops)
 
     def wrapped(*args):
+        # the round's noise is drawn outside the body, so the recompute
+        # needs no saved RNG state (and a CUDA graph capture may not read
+        # it)
         return torch_checkpoint.checkpoint(body, *args, use_reentrant=False,
-                                           **kw)
+                                           preserve_rng_state=False, **kw)
     return wrapped
 
 
@@ -198,6 +207,12 @@ def query_sat_init(generator: torch.Generator, cfg: QuerySATConfig) -> dict:
 def params_to(params: Any, device: torch.device) -> Any:
     """The params tree with every tensor on `device`."""
     return pytree.tree_map(lambda t: t.to(device), params)
+
+
+def _blend(x: torch.Tensor) -> torch.Tensor:
+    """stop_gradient(x) * 0.2 + x * 0.8 with the constants in x's type, as
+    the TPU package's weak-typed constants are."""
+    return x.detach() * weak(0.2, x) + x * weak(0.8, x)
 
 
 def _head_weighted_loss(per_graph_loss: torch.Tensor, logit_maps: int
@@ -312,123 +327,142 @@ def _query_sat_apply(params, cfg, batch, generator, training, labels,
                                  0.0)
     smoothed_labels = labels.to(torch.float32)[:, None].expand(V, K)
 
-    def l2c(x):
-        if plans is not None:
-            return plan_lit_to_clause(x, plans)
-        return lit_to_clause(batch, x)
+    # every tensor a round reads besides its carry: a graphed round loop
+    # copies these into its buffers
+    ctx = dict(params=params, batch=batch, plans=plans,
+               noisy_labels=noisy_labels, degree_weight=degree_weight,
+               var_degree_weight=var_degree_weight,
+               rev_degree_weight=rev_degree_weight,
+               inv_var_counts=inv_var_counts,
+               smoothed_labels=smoothed_labels, noise_scale=noise_scale)
 
-    def c2l(x):
-        if plans is not None:
-            return plan_clause_to_lit(x, plans)
-        return clause_to_lit(batch, x)
-
-    def draw_noise(step_idx):
+    def draw_noise(step_idx, gen=generator):
         if cfg.debug_zero_noise:
             return torch.zeros((V, 4), device=dev)
         if round_noise is not None:
             return round_noise[step_idx]
-        return torch.randn((V, 4), generator=generator, device=dev)
+        return torch.randn((V, 4), generator=gen, device=dev)
 
-    def round_body(carry, noise4):
-        (variables, clause_state, last_logits, best_map_vars, loss_sum,
-         loss_count, steps, done) = carry
-        v1 = torch.cat([variables, noise4, noisy_labels], dim=-1)
+    def make_round(ctx):
+        params, batch, plans = ctx["params"], ctx["batch"], ctx["plans"]
+        noisy_labels, noise_scale = ctx["noisy_labels"], ctx["noise_scale"]
+        degree_weight = ctx["degree_weight"]
+        var_degree_weight = ctx["var_degree_weight"]
+        rev_degree_weight = ctx["rev_degree_weight"]
+        inv_var_counts = ctx["inv_var_counts"]
+        smoothed_labels = ctx["smoothed_labels"]
 
-        # query and the closed-form gradient of the clause loss wrt it:
-        # first-order ops, which the outer backward differentiates through
-        query = mlp_apply(params["variables_query"],
-                          mcfgs["variables_query"][0], v1, compute_dtype=cdt)
-        clauses_loss, grads = softplus_loss_and_grad(query, batch,
-                                                     plans=plans)
-        variables_grad = grads * var_degree_weight
-        clauses_loss = clauses_loss * 4.0
+        def l2c(x):
+            if plans is not None:
+                return plan_lit_to_clause(x, plans)
+            return lit_to_clause(batch, x)
 
-        # clause update
-        if cfg.use_message_passing:
-            var_msg = mlp_apply(params["lit_mlp"], mcfgs["lit_mlp"][0], v1,
-                                compute_dtype=cdt)
-            lit1, lit2 = torch.split(var_msg, var_msg.shape[1] // 2, dim=1)
-            literals = torch.cat([lit1, lit2], dim=0)          # [2V, Q]
-            clause_messages = l2c(literals) * rev_degree_weight
-            clause_unit = torch.cat(
-                [clause_state, clause_messages, clauses_loss], dim=-1)
-        else:
-            clause_unit = torch.cat([clause_state, clauses_loss], dim=-1)
-        clause_data = mlp_apply(params["clause_mlp"],
-                                mcfgs["clause_mlp"][0], clause_unit,
-                                compute_dtype=cdt)
+        def c2l(x):
+            if plans is not None:
+                return plan_clause_to_lit(x, plans)
+            return clause_to_lit(batch, x)
 
-        variables_loss_all = clause_data[:, :Q]
-        new_clause_value = pair_norm_clauses(clause_data[:, Q:], batch) * \
-            0.25
-        new_clause_state = new_clause_value + 0.1 * clause_state
+        def round_body(carry, noise4):
+            (variables, clause_state, last_logits, best_map_vars, loss_sum,
+             loss_count, steps, done) = carry
+            v1 = torch.cat([variables, noise4, noisy_labels], dim=-1)
 
-        # variable update
-        variables_loss = c2l(variables_loss_all) * degree_weight
-        unit = torch.cat([variables_grad, v1, variables_loss[:V],
-                          variables_loss[V:]], dim=-1)
-        new_variables = mlp_apply(params["update_gate"],
-                                  mcfgs["update_gate"][0], unit,
-                                  compute_dtype=cdt)
-        new_variables = pair_norm_vars(new_variables, batch) * 0.25
-        new_variables = new_variables + 0.1 * variables
+            # query and the closed-form gradient of the clause loss wrt it:
+            # first-order ops, which the outer backward differentiates through
+            query = mlp_apply(params["variables_query"],
+                              mcfgs["variables_query"][0], v1, compute_dtype=cdt)
+            clauses_loss, grads = softplus_loss_and_grad(query, batch,
+                                                         plans=plans)
+            variables_grad = grads * var_degree_weight
+            clauses_loss = clauses_loss * 4.0
 
-        # logits and per-graph loss
-        logits = mlp_apply(params["variables_output"],
-                           mcfgs["variables_output"][0], new_variables,
-                           compute_dtype=cdt)
-        if cfg.supervised:
-            per_var_loss = diffusion_kl_loss(smoothed_labels, logits,
-                                             noise_scale)
-            per_var_loss = per_var_loss * batch.var_mask[:, None]
-            per_graph_loss = var_segment_sum(batch, per_var_loss) * \
-                inv_var_counts[:, None]
-        elif cfg.use_linear_loss:
-            # a scalar loss, spread evenly over the real graphs and heads
-            per_graph_loss = torch.zeros((batch.G, K), device=dev) + \
-                linear_loss(logits, batch) / torch.clamp(
-                    batch.graph_mask.sum(), min=1.0) / K
-            per_graph_loss = per_graph_loss * batch.graph_mask[:, None]
-        else:
-            per_clause_loss = softplus_mixed_loss(logits, batch)
-            per_graph_loss = clause_segment_sum(batch, per_clause_loss)
-            per_graph_loss = torch.sqrt(per_graph_loss + 1e-6) - \
-                torch.sqrt(torch.tensor(1e-6, device=dev))
+            # clause update
+            if cfg.use_message_passing:
+                var_msg = mlp_apply(params["lit_mlp"], mcfgs["lit_mlp"][0], v1,
+                                    compute_dtype=cdt)
+                lit1, lit2 = torch.split(var_msg, var_msg.shape[1] // 2, dim=1)
+                literals = torch.cat([lit1, lit2], dim=0)          # [2V, Q]
+                clause_messages = l2c(literals) * rev_degree_weight
+                clause_unit = torch.cat(
+                    [clause_state, clause_messages, clauses_loss], dim=-1)
+            else:
+                clause_unit = torch.cat([clause_state, clauses_loss], dim=-1)
+            clause_data = mlp_apply(params["clause_mlp"],
+                                    mcfgs["clause_mlp"][0], clause_unit,
+                                    compute_dtype=cdt)
 
-        logit_loss = _head_weighted_loss(per_graph_loss, K)
+            variables_loss_all = clause_data[:, :Q]
+            new_clause_value = pair_norm_clauses(clause_data[:, Q:], batch) * \
+                0.25
+            new_clause_state = new_clause_value + weak(0.1, clause_state) * clause_state.float()
 
-        # best head per graph, broadcast to variables
-        best_map = torch.argmin(per_graph_loss, dim=-1).to(torch.float32)
-        new_best_vars = graph_gather_vars(
-            batch, best_map[:, None])[:, 0].to(torch.int32)
-        out_logits = torch.gather(logits, 1, new_best_vars.long()[:, None])
-        sat = is_batch_sat(out_logits, batch) >= 1.0
+            # variable update
+            variables_loss = c2l(variables_loss_all) * degree_weight
+            unit = torch.cat([variables_grad, v1, variables_loss[:V],
+                              variables_loss[V:]], dim=-1)
+            new_variables = mlp_apply(params["update_gate"],
+                                      mcfgs["update_gate"][0], unit,
+                                      compute_dtype=cdt)
+            new_variables = pair_norm_vars(new_variables, batch) * 0.25
+            new_variables = new_variables + weak(0.1, variables) * variables.float()
 
-        # early exit by masking: the loss of the round that satisfies the
-        # batch is accumulated, but the 0.2/0.8 blend is skipped
-        newly_done = sat & ~done
-        active = ~done
-        upd_logits = torch.where(active, logits, last_logits)
-        upd_best = torch.where(active, new_best_vars, best_map_vars)
-        loss_sum = loss_sum + torch.where(active, logit_loss, 0.0)
-        loss_count = loss_count + active.to(torch.float32)
-        steps = steps + active.to(torch.int32)
+            # logits and per-graph loss
+            logits = mlp_apply(params["variables_output"],
+                               mcfgs["variables_output"][0], new_variables,
+                               compute_dtype=cdt)
+            if cfg.supervised:
+                per_var_loss = diffusion_kl_loss(smoothed_labels, logits,
+                                                 noise_scale)
+                per_var_loss = per_var_loss * batch.var_mask[:, None]
+                per_graph_loss = var_segment_sum(batch, per_var_loss) * \
+                    inv_var_counts[:, None]
+            elif cfg.use_linear_loss:
+                # a scalar loss, spread evenly over the real graphs and heads
+                per_graph_loss = torch.zeros((batch.G, K), device=dev) + \
+                    linear_loss(logits, batch) / torch.clamp(
+                        batch.graph_mask.sum(), min=1.0) / K
+                per_graph_loss = per_graph_loss * batch.graph_mask[:, None]
+            else:
+                per_clause_loss = softplus_mixed_loss(logits, batch)
+                per_graph_loss = clause_segment_sum(batch, per_clause_loss)
+                per_graph_loss = torch.sqrt(per_graph_loss + 1e-6) - \
+                    torch.sqrt(torch.full((), 1e-6, device=dev))
 
-        # the TPU package blends stop_gradient(x) * 0.2 + x * 0.8; the
-        # same expression keeps the same f32 rounding
-        blend_v = new_variables.detach() * 0.2 + new_variables * 0.8
-        blend_c = new_clause_state.detach() * 0.2 + new_clause_state * 0.8
-        cont = active & ~newly_done
-        upd_variables = torch.where(
-            cont, blend_v, torch.where(newly_done, new_variables, variables))
-        upd_clause_state = torch.where(
-            cont, blend_c,
-            torch.where(newly_done, new_clause_state, clause_state))
-        stats = _round_stats(
-            logit_loss, query, variables_grad, new_variables,
-            new_clause_state, logits, sat) if collect else None
-        return (upd_variables, upd_clause_state, upd_logits, upd_best,
-                loss_sum, loss_count, steps, done | sat), stats
+            logit_loss = _head_weighted_loss(per_graph_loss, K)
+
+            # best head per graph, broadcast to variables
+            best_map = torch.argmin(per_graph_loss, dim=-1).to(torch.float32)
+            new_best_vars = graph_gather_vars(
+                batch, best_map[:, None])[:, 0].to(torch.int32)
+            out_logits = torch.gather(logits, 1, new_best_vars.long()[:, None])
+            sat = is_batch_sat(out_logits, batch) >= 1.0
+
+            # early exit by masking: the loss of the round that satisfies the
+            # batch is accumulated, but the 0.2/0.8 blend is skipped
+            newly_done = sat & ~done
+            active = ~done
+            upd_logits = torch.where(active, logits, last_logits)
+            upd_best = torch.where(active, new_best_vars, best_map_vars)
+            loss_sum = loss_sum + torch.where(active, logit_loss, 0.0)
+            loss_count = loss_count + active.to(torch.float32)
+            steps = steps + active.to(torch.int32)
+
+            # the TPU package blends stop_gradient(x) * 0.2 + x * 0.8, its
+            # constants weak-typed: in the state's type
+            blend_v = _blend(new_variables)
+            blend_c = _blend(new_clause_state)
+            cont = active & ~newly_done
+            upd_variables = torch.where(
+                cont, blend_v, torch.where(newly_done, new_variables, variables))
+            upd_clause_state = torch.where(
+                cont, blend_c,
+                torch.where(newly_done, new_clause_state, clause_state))
+            stats = _round_stats(
+                logit_loss, query, variables_grad, new_variables,
+                new_clause_state, logits, sat) if collect else None
+            return (upd_variables, upd_clause_state, upd_logits, upd_best,
+                    loss_sum, loss_count, steps, done | sat), stats
+        return round_body
 
     carry = (
         torch.ones((V, cfg.feature_maps), device=dev),        # variables
@@ -445,13 +479,30 @@ def _query_sat_apply(params, cfg, batch, generator, training, labels,
     early_exit = early_exit and not training
     collect = cfg.collect_round_stats and not early_exit
     round_stats: list[dict] = []
-    body = remat_body(cfg, training, round_body)
-    for step_idx in range(rounds):
-        carry, stats = body(carry, draw_noise(step_idx))
-        if collect:
-            round_stats.append(stats)
-        if early_exit and bool(carry[-1]):
-            break
+    if not training and not collect and rounds > 0 and \
+            cuda_graphs.graphs_enabled(dev):
+        # one CUDA graph of the round, replayed `rounds` times
+        def make_step(ctx):
+            round_body = make_round(ctx)
+
+            def step(carry, gen, noise):
+                if noise is None:
+                    noise = draw_noise(None, gen)
+                return round_body(carry, noise)[0]
+            return step
+
+        carry = cuda_graphs.run_rounds(
+            make_step, ("query_sat", cfg, str(dev)), ctx, carry, rounds,
+            generator, None if cfg.debug_zero_noise else round_noise,
+            early_exit)
+    else:
+        body = remat_body(cfg, training, make_round(ctx))
+        for step_idx in range(rounds):
+            carry, stats = body(carry, draw_noise(step_idx))
+            if collect:
+                round_stats.append(stats)
+            if early_exit and bool(carry[-1]):
+                break
     (variables, clause_state, last_logits, best_map_vars, loss_sum,
      loss_count, steps, done) = carry
 

@@ -1,9 +1,25 @@
 """Sparse graph aggregation ops over a SatBatch, in plain PyTorch.
 
 Counterparts of the TPU package's `ops/graph_ops.py`, which that package
-leaves to XLA (gather, mask, sorted segment sum); here they are
-`index_select` and `index_add_`. The planned SpMM pair that runs on the
-hand-written kernel is `ops/segsum.py`.
+leaves to XLA (gather, mask, sorted segment sum). Here every sum takes one
+fixed order, on the CPU and on the card, run after run (no atomics), so
+two runs of a step agree bit for bit and a CUDA graph of it equals the
+eager step:
+
+- `segment_sum` over sorted segment ids: each segment's rows in row order
+  (`torch.segment_reduce`, which on the CPU equals `index_add_` bit for
+  bit). On the card one thread of `segment_reduce` walks a whole segment,
+  which is slow for the per-graph sums of the pair norms and losses (a
+  hundred segments of a hundred rows), so there the rows are summed in
+  blocks of `BLOCK_ROWS` first (a block never crosses a segment's bound),
+  then the blocks of each segment. Its backward is the gather of the
+  cotangent.
+- `gather_rows`, `index_select` whose backward sums each source row's
+  cotangents in a fixed order (a stable sort of the indices, then
+  `segment_sum`) instead of `index_add_`'s atomics.
+
+The planned SpMM pair that runs on the hand-written kernel is
+`ops/segsum.py`.
 """
 
 from __future__ import annotations
@@ -12,19 +28,80 @@ import torch
 
 from diffusionsat_torch.graph.batch import SatBatch
 
+# rows a thread sums in the first pass of a segment sum on the card
+BLOCK_ROWS = 16
+
+
+def _sorted_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int, blocked: bool | None = None
+                ) -> torch.Tensor:
+    """The segment sum; `blocked` (by default on the card) sums blocks of
+    rows first."""
+    dev = segment_ids.device
+    bounds = torch.arange(num_segments + 1, dtype=segment_ids.dtype,
+                          device=dev)
+    offsets = torch.searchsorted(segment_ids, bounds)
+    if not (data.is_cuda if blocked is None else blocked):
+        return torch.segment_reduce(data, "sum", offsets=offsets, axis=0,
+                                    unsafe=True)
+    # blocks: every segment start and every BLOCK_ROWS-th row start one
+    rows = data.shape[0]
+    starts = torch.sort(torch.cat([offsets[:-1], torch.arange(
+        0, rows, BLOCK_ROWS, dtype=offsets.dtype, device=dev)])).values
+    partial = torch.segment_reduce(
+        data, "sum", offsets=torch.cat([starts, offsets.new_full(
+            (1,), rows)]), axis=0, unsafe=True)
+    return torch.segment_reduce(partial, "sum",
+                                offsets=torch.searchsorted(starts, offsets),
+                                axis=0, unsafe=True)
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, segment_ids, num_segments):
+        ctx.save_for_backward(segment_ids)
+        return _sorted_sum(data, segment_ids, num_segments)
+
+    @staticmethod
+    def backward(ctx, grad):
+        segment_ids, = ctx.saved_tensors
+        return grad.index_select(0, segment_ids), None, None
+
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
-    """out[s] = sum of the rows of `data` whose segment id is s."""
-    out = torch.zeros((num_segments,) + tuple(data.shape[1:]),
-                      dtype=data.dtype, device=data.device)
-    return out.index_add_(0, segment_ids, data)
+    """out[s] = sum of the rows of `data` whose segment id is s.
+
+    The ids must be sorted ascending, as every batch's are (padding points
+    at the last segment): each segment's rows are then contiguous."""
+    return _SegmentSum.apply(data, segment_ids, num_segments)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, index):
+        ctx.save_for_backward(index)
+        ctx.rows = x.shape[0]
+        return x.index_select(0, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        index, = ctx.saved_tensors
+        order = torch.argsort(index, stable=True)
+        return segment_sum(grad.index_select(0, order),
+                           index.index_select(0, order), ctx.rows), None
+
+
+def gather_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """x[index] along the rows, its backward summed in a fixed order (on
+    the CPU the order of `index_select`'s own backward)."""
+    return _GatherRows.apply(x, index)
 
 
 def lit_to_clause(batch: SatBatch, lit_features: torch.Tensor
                   ) -> torch.Tensor:
     """out[c] = sum_{lit in c} x[lit]: [2V, F] -> [C, F]."""
-    gathered = lit_features.index_select(0, batch.edge_lit_c)
+    gathered = gather_rows(lit_features, batch.edge_lit_c)
     gathered = gathered * batch.edge_mask_c[:, None]
     return segment_sum(gathered, batch.edge_clause_c, batch.C)
 
@@ -32,7 +109,7 @@ def lit_to_clause(batch: SatBatch, lit_features: torch.Tensor
 def clause_to_lit(batch: SatBatch, clause_features: torch.Tensor
                   ) -> torch.Tensor:
     """out[lit] = sum_{c containing lit} x[c]: [C, F] -> [2V, F]."""
-    gathered = clause_features.index_select(0, batch.edge_clause_l)
+    gathered = gather_rows(clause_features, batch.edge_clause_l)
     gathered = gathered * batch.edge_mask_l[:, None]
     return segment_sum(gathered, batch.edge_lit_l, 2 * batch.V)
 
@@ -68,7 +145,7 @@ def _gather_graph(graph_features: torch.Tensor, ids: torch.Tensor
                   ) -> torch.Tensor:
     padded = torch.cat([graph_features,
                         torch.zeros_like(graph_features[:1])], dim=0)
-    return padded.index_select(0, ids)
+    return gather_rows(padded, ids)
 
 
 def graph_gather_vars(batch: SatBatch, graph_features: torch.Tensor

@@ -12,7 +12,26 @@ its operand's type, which is what the cast's own backward would do.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def weak(value: float, like: torch.Tensor) -> float:
+    """A Python constant as the TPU package's weak-typed constants meet a
+    tensor: rounded to the tensor's type first. `x * 0.1` on a bf16 `x`
+    multiplies by bf16(0.1) = 0.10009765625 there, and by the f32 value
+    0.1 in eager PyTorch. A product of two bf16 values is exact in f32;
+    where the TPU package's compiler keeps such a product in f32 (its
+    excess precision: `y_f32 + 0.1 * x_bf16`), write
+    `y + weak(0.1, x) * x.float()`; where it rounds it (the bf16 blend),
+    `x * weak(0.2, x)`. For f32 tensors it changes nothing."""
+    return _rounded(float(value), like.dtype)
 
 
 class _LinearF32Acc(torch.autograd.Function):

@@ -7,7 +7,12 @@ segmented sum over a CSR plan, one warp per output row, no atomics.
 
 - `build_segsum_plan` / `build_batch_plans`: host-side (numpy) CSR plans,
   one per direction, with masked edges dropped. They have no tile or
-  window limit, so there is no degenerate plan and no fallback.
+  window limit, so there is no degenerate plan and no fallback. With
+  `pad=True` every plan's `gather` is padded to the bucket's edge capacity
+  (`row_ptr` already has the bucket's length, and its last entry stays the
+  real edge count, so the kernel never reads the padding): the plans of
+  all batches of a bucket then have one shape, and one CUDA graph serves
+  them all.
 - `gather_segsum`: the kernel's wrapper. It launches the kernel for CUDA
   tensors, runs `segsum_plain` for CPU tensors, and raises on anything
   else. `LAUNCHES` counts kernel launches per direction.
@@ -42,6 +47,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from diffusionsat_torch.ops.graph_ops import gather_rows
 from diffusionsat_torch.ops.tiled_ops import (
     TiledIncidence,
     tiled_clause_to_lit,
@@ -153,6 +159,16 @@ class SegsumPlan:
         return dataclasses.replace(self, row_ptr=self.row_ptr.to(device),
                                    gather=self.gather.to(device))
 
+    def padded(self, capacity: int) -> "SegsumPlan":
+        """The plan with `gather` padded with source row 0 to `capacity`
+        entries; the padding lies past `row_ptr[-1]`, so no sum reads it."""
+        n = self.gather.shape[0]
+        if n > capacity:
+            raise ValueError(f"{self.name}: {n} edges exceed the capacity "
+                             f"{capacity}")
+        return dataclasses.replace(self, gather=torch.cat(
+            [self.gather, self.gather.new_zeros(capacity - n)]))
+
 
 def build_segsum_plan(name: str, seg_ids: np.ndarray, src_ids: np.ndarray,
                       mask: np.ndarray, num_segments: int,
@@ -191,8 +207,9 @@ class BatchPlans:
                           self.clause_to_lit.to(device))
 
 
-def build_batch_plans(batch) -> BatchPlans:
-    """Build both CSR plans of a SatBatch on the host (CPU tensors)."""
+def build_batch_plans(batch, pad: bool = False) -> BatchPlans:
+    """Build both CSR plans of a SatBatch on the host (CPU tensors); with
+    `pad`, each padded to the batch's edge capacity."""
     a = lambda t: t.detach().cpu().numpy()  # noqa: E731
     V2, C = 2 * batch.V, batch.C
     c = build_segsum_plan("lit_to_clause", a(batch.edge_clause_c),
@@ -201,6 +218,8 @@ def build_batch_plans(batch) -> BatchPlans:
     lit = build_segsum_plan("clause_to_lit", a(batch.edge_lit_l),
                             a(batch.edge_clause_l), a(batch.edge_mask_l),
                             num_segments=V2, num_sources=C)
+    if pad:
+        c, lit = c.padded(batch.E), lit.padded(batch.E)
     return BatchPlans(lit_to_clause=c, clause_to_lit=lit)
 
 
@@ -230,14 +249,15 @@ class ANFPlans:
                           for f in dataclasses.fields(self)))
 
 
-def build_anf_plans(batch) -> ANFPlans:
+def build_anf_plans(batch, pad: bool = False) -> ANFPlans:
     """Build the kernel's plans of an ANFBatch on the host (CPU tensors):
     both membership directions over the masked edges of the nodes other
     than the constant one (whose edges are counted per clause instead),
     and the scatter of each real AND node's value to its two operand
     variables (`and1 - 1`, `and2 - 1`, clamped at 0 as the model clamps
     them) with its transpose, which gathers and adds the two operands'
-    rows."""
+    rows. With `pad`, the membership plans are padded to the batch's edge
+    capacity and the scatter plans to two edges per AND slot."""
     a = lambda t: t.detach().cpu().numpy()  # noqa: E731
     n_nodes, C, V, A = batch.n_value_nodes, batch.C, batch.V, batch.A
     node_c, clause_c = a(batch.edge_node_c), a(batch.edge_clause_c)
@@ -262,6 +282,9 @@ def build_anf_plans(batch) -> ANFPlans:
                             num_segments=V, num_sources=A)
     v2a = build_segsum_plan("var_to_and", ands[by_and], ops[by_and], ones,
                             num_segments=A, num_sources=V)
+    if pad:
+        n2c, c2n = n2c.padded(batch.E), c2n.padded(batch.E)
+        a2v, v2a = a2v.padded(2 * A), v2a.padded(2 * A)
     return ANFPlans(node_to_clause=n2c, clause_to_node=c2n, and_to_var=a2v,
                     var_to_and=v2a,
                     const_count=torch.from_numpy(const_count))
@@ -273,15 +296,12 @@ def build_anf_plans(batch) -> ANFPlans:
 
 def segsum_plain(x: torch.Tensor, plan: SegsumPlan) -> torch.Tensor:
     """Plain PyTorch version of the kernel: `index_select` of the source
-    rows, then `index_add_` into the segments."""
-    nnz = plan.gather.shape[0]
-    seg = torch.repeat_interleave(
-        torch.arange(plan.num_segments, device=x.device,
-                     dtype=torch.int32),
-        plan.row_ptr.diff(), output_size=nnz)
-    out = torch.zeros((plan.num_segments, x.shape[1]), dtype=x.dtype,
-                      device=x.device)
-    return out.index_add_(0, seg, x.index_select(0, plan.gather))
+    rows, then a sum of each segment's rows in plan order over the CSR
+    offsets (`torch.segment_reduce`): one fixed order on the CPU and on the
+    card, so two runs agree bit for bit. Padding past `row_ptr[-1]` is
+    gathered and not summed."""
+    return torch.segment_reduce(gather_rows(x, plan.gather), "sum",
+                                offsets=plan.row_ptr, axis=0, unsafe=True)
 
 
 def _check(x: torch.Tensor, plan: SegsumPlan) -> None:

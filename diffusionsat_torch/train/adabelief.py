@@ -86,8 +86,10 @@ class AdaBelief:
 
         count = state.count + 1
         t = count.to(torch.float32)
-        b1p = torch.pow(torch.tensor(b1, device=t.device), t)
-        b2p = torch.pow(torch.tensor(b2, device=t.device), t)
+        # device constants by fill, not by a host copy: a step may be
+        # captured in a CUDA graph
+        b1p = torch.pow(torch.full((), b1, device=t.device), t)
+        b2p = torch.pow(torch.full((), b2, device=t.device), t)
 
         if self.clip_gradients:
             # v >= 0, so its 1-norm is its sum

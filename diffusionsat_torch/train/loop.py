@@ -4,8 +4,13 @@ Counterpart of the TPU package's `train/loop.py`: functions over an
 explicit `TrainState`, run as eager PyTorch. The state's random key is a
 `torch.Generator` on the device, which every step advances in place. A
 step's loss, round count and gradient norm stay on the device; `train`
-fetches the losses once per log window. That package's many-steps-in-one-
-dispatch step is not ported (ROADMAP Queue 1, item 5).
+fetches the losses once per log window.
+
+Many steps per dispatch (`make_scanned_train_step_for` over a chunk that
+`stack_batches` stacked): on the card the N steps of a chunk are one
+captured CUDA graph, one per chunk shape, replayed once a chunk (see
+`cuda_graphs.py`); on the CPU, or with `DSAT_EAGER=1`, the same function
+runs the eager step N times.
 
 A flat batch runs with its kernel plans in every step here (train, self-
 supervised, diagnostics, predict): `BatchPlans` for a CNF `SatBatch`,
@@ -31,6 +36,7 @@ from typing import Any, Callable, Iterable, Iterator, Sequence
 import torch
 from torch.utils import _pytree as pytree
 
+from diffusionsat_torch import cuda_graphs
 from diffusionsat_torch.diffusion.schedule import construct_training_input
 
 from diffusionsat_torch.device import resolve_device
@@ -127,13 +133,16 @@ def _select_labels(batch: Batch, generator: torch.Generator | None,
                                               isolation_alpha))
 
 
-def build_plans(batch: Batch) -> BatchPlans | ANFPlans | None:
+def build_plans(batch: Batch, pad: bool = False
+                ) -> BatchPlans | ANFPlans | None:
     """The kernel plans of a flat batch, host-built: `BatchPlans` of a
-    SatBatch, `ANFPlans` of an ANFBatch; None for a dense batch."""
+    SatBatch, `ANFPlans` of an ANFBatch; None for a dense batch. With
+    `pad`, padded to the batch's bucket, so that the plans of one bucket
+    share their shapes."""
     if isinstance(batch, SatBatch):
-        return build_batch_plans(batch)
+        return build_batch_plans(batch, pad=pad)
     if isinstance(batch, ANFBatch):
-        return build_anf_plans(batch)
+        return build_anf_plans(batch, pad=pad)
     return None
 
 
@@ -214,6 +223,125 @@ def make_train_step_for(apply_fn: Callable, cfg, optimizer,
     state, {"loss", "steps_taken", "gradnorm"}), all three device
     tensors."""
     return _make_step(apply_fn, cfg, optimizer, None, device)
+
+
+def stack_batches(items: Sequence) -> Any:
+    """Same-shape batches (or (batch, plans) pairs) stacked on a new
+    leading axis, on the host: every tensor field gains the stack axis,
+    optional fields must be set in all or in none, and every other field
+    (a plan's name and source count) must be equal in all. Flat plans
+    stack when they are padded to their bucket (`build_plans(batch,
+    pad=True)`)."""
+    return cuda_graphs.stack_trees(list(items))
+
+
+def make_scanned_train_step_for(apply_fn: Callable, cfg, optimizer,
+                                device: str | torch.device = "cuda"):
+    """N training steps in one dispatch, over a chunk of N same-shape
+    batches that `stack_batches` stacked: the counterpart of the TPU
+    package's `lax.scan` of the train step.
+
+    Returns mega_step(state, stacked, max_steps=None) -> (state, {"loss":
+    the chunk's mean loss, "loss_per_step": [N], "steps_taken": the last
+    step's}); `stacked` is a stacked batch, or a (stacked batch, stacked
+    padded plans) pair for a model that takes plans. `state.step` advances
+    by the steps taken: N, or `max_steps` when that is smaller (the chunk's
+    first `max_steps` batches).
+
+    On CUDA the chunk's steps run as one CUDA graph, captured once per
+    chunk shape (after one warm-up step), with the chunk, the params and
+    the optimizer state in the graph's buffers: each call copies the chunk
+    in device to device and replays the graph. The returned state's tensors
+    are those buffers, written in place by the next call (pass a state that
+    holds them back, and nothing is copied). The graph draws from the
+    state's generator exactly as N eager steps would, and leaves it
+    advanced as far. A capture or replay that fails raises. On the CPU, or
+    with `DSAT_EAGER=1`, the N eager steps run one after another: the plain
+    version.
+    """
+    dev = resolve_device(device)
+    step = _make_step(apply_fn, cfg, optimizer, None, dev)
+    with_plans = _takes_plans(apply_fn)
+    graphs: dict = {}
+
+    def split(stacked):
+        batch, plans = stacked if isinstance(stacked, tuple) else \
+            (stacked, None)
+        if with_plans and plans is None:
+            raise ValueError("a flat chunk needs its stacked padded plans: "
+                             "pass (stacked batch, stacked plans)")
+        return batch, plans
+
+    def run_eager(state, batch, plans, n):
+        losses = []
+        for i in range(n):
+            state, out = step(state, cuda_graphs.index_tree(batch, i),
+                              None if plans is None else
+                              cuda_graphs.index_tree(plans, i))
+            losses.append(out["loss"])
+        return state, torch.stack(losses), out["steps_taken"]
+
+    def graph_for(state, batch, plans, n):
+        sig = (cuda_graphs.tree_signature(
+            (state.params, state.opt_state, batch, plans)),
+            state.generator is None)
+        if sig in graphs:
+            return graphs[sig]
+        losses = torch.zeros((n,), device=dev)
+        steps_taken = torch.zeros((), dtype=torch.int32, device=dev)
+
+        def chunk(static, gen):
+            opt, sbatch, splans = static
+            st = TrainState(params=opt[0], opt_state=opt[1], step=0,
+                            generator=gen)
+            st, per, last = run_eager(st, sbatch, splans, n)
+            cuda_graphs.tree_copy_(opt, (st.params, st.opt_state))
+            losses.copy_(per)
+            steps_taken.copy_(last)
+
+        def one_step(static, gen):
+            # the warm-up before the capture: one step of the chunk
+            opt, sbatch, splans = static
+            run_eager(TrainState(params=opt[0], opt_state=opt[1], step=0,
+                                 generator=gen), sbatch, splans, 1)
+
+        static = cuda_graphs.tree_map(
+            torch.clone, ((state.params, state.opt_state), batch, plans))
+        graph = cuda_graphs.CapturedGraph(
+            chunk, static, dev, with_generator=state.generator is not None,
+            warmup=one_step)
+        graphs[sig] = graph, losses, steps_taken
+        return graphs[sig]
+
+    def mega_step(state: TrainState, stacked, max_steps: int | None = None):
+        batch, plans = split(stacked)
+        n = cuda_graphs.stack_length(batch)
+        if max_steps is not None and max_steps < n:
+            if max_steps < 1:
+                raise ValueError(f"max_steps {max_steps} < 1")
+            n = max_steps
+            batch, plans = cuda_graphs.tree_map(lambda t: t[:n],
+                                                (batch, plans))
+        if not cuda_graphs.graphs_enabled(dev):
+            batch, plans = cuda_graphs.tree_map(lambda t: t.to(dev),
+                                                (batch, plans))
+            state, per, last = run_eager(state, batch, plans, n)
+            return state, {"loss": per.mean(), "loss_per_step": per,
+                           "steps_taken": last}
+        graph, losses, steps_taken = graph_for(state, batch, plans, n)
+        opt, sbatch, splans = graph.static
+        cuda_graphs.tree_copy_(opt, (state.params, state.opt_state))
+        cuda_graphs.tree_copy_((sbatch, splans), (batch, plans))
+        with graph.drawing_from(state.generator):
+            graph.replay()
+        new_state = TrainState(params=opt[0], opt_state=opt[1],
+                               step=state.step + n,
+                               generator=state.generator)
+        return new_state, {"loss": losses.mean(),
+                           "loss_per_step": losses.clone(),
+                           "steps_taken": steps_taken.clone()}
+
+    return mega_step
 
 
 def make_train_step(cfg, optimizer, device: str | torch.device = "cuda"):
@@ -330,12 +458,14 @@ def make_selfsupervised_train_step(cfg, optimizer,
 def plan_batches(batches: Iterable[Batch],
                  device: str | torch.device = "cuda") -> list[PlannedBatch]:
     """Place every batch on `device` once, each flat batch with its kernel
-    plans (`BatchPlans` or `ANFPlans`, built on the host before the move);
-    dense batches get None. The pairs are what `evaluate_metrics` iterates over."""
+    plans (`BatchPlans` or `ANFPlans`, built on the host before the move and
+    padded to the bucket, so that one graphed round serves every batch of a
+    bucket); dense batches get None. The pairs are what `evaluate_metrics`
+    iterates over."""
     dev = resolve_device(device)
     out: list[PlannedBatch] = []
     for b in batches:
-        plans = build_plans(b)
+        plans = build_plans(b, pad=True)
         out.append((b.to(dev), None if plans is None else plans.to(dev)))
     return out
 
@@ -462,8 +592,12 @@ def train(state: TrainState, train_step, data_iter: Iterator,
     records into TensorBoard.
 
     `target_step`: stop once `state.step` reaches it. The budget is checked
-    after every step, so the loop never runs past it; a window cut short by
-    the budget is still logged."""
+    before every call, so the loop never runs past it: a step that takes
+    `max_steps` (the scanned step) is handed what is left, so a chunk of
+    many steps is cut at the budget. Steps per second count the steps
+    taken (`state.step`), not the calls. A window cut short by the budget
+    is still logged."""
+    budgeted = _takes(train_step, "max_steps")
     t0 = time.time()
     window_losses: list[torch.Tensor] = []
     prev_step = state.step
@@ -489,7 +623,11 @@ def train(state: TrainState, train_step, data_iter: Iterator,
         if target_step is not None and state.step >= target_step:
             break
         batch = next(data_iter)
-        state, out = train_step(state, batch)
+        if budgeted and target_step is not None:
+            state, out = train_step(state, batch,
+                                    max_steps=target_step - state.step)
+        else:
+            state, out = train_step(state, batch)
         # the loss stays on the device until the window is logged
         window_losses.append(out["loss"])
         if (i + 1) % log_every == 0:

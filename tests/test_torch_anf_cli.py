@@ -8,6 +8,7 @@ query noise is drawn from another generator)."""
 
 import argparse
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -95,11 +96,20 @@ def test_training_script_learns_restores_and_exports(tiled, tmp_path,
     assert [r["step"] for r in log2 if "steps_per_sec" in r] == [28]
 
 
-def test_training_script_mega_steps_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        anf_training.main(TINY + ["--mega_steps", "4", "--data_dir",
-                                  str(tmp_path)])
-    assert not list(tmp_path.iterdir())
+def test_training_script_mega_steps_raise(tmp_path, capsys):
+    """`--mega_steps` raised until the scanned step was ported; it now runs
+    chunks of N steps over the padded plans (tiles off, with the TPU
+    package's warning) and stops at the budget exactly."""
+    final = anf_training.main(TINY + [
+        "--mega_steps", "4", "--train_steps", "10", "--data_dir",
+        str(tmp_path / "dc"), "--train_dir", str(tmp_path / "runs")])
+    out = capsys.readouterr().out
+    assert "DSAT_ANF_TILED ignored with --mega_steps > 1" in out
+    assert "mega-steps:" in out
+    ckpts = (Path(final["run_dir"]) / "ckpt").iterdir()
+    assert sorted(int(p.stem.split("_")[1]) for p in ckpts)[-1] == 10
+    with np.load(Path(final["run_dir"]) / "ckpt" / "ckpt_10.npz") as z:
+        assert int(z["step"]) == 10 and int(z["count"]) == 10
 
 
 def test_eval_script_matches_the_tpu_packages_keys(tmp_path, monkeypatch):
