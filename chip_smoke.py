@@ -99,9 +99,30 @@ Phases, each of which raises (exit code 1) on failure:
    path's segment sums (run twice, timed by route), the wall and device
    busy share of each graphed path beside its eager counterpart, and a
    cut `python -m diffusionsat_torch.bench` at f32 and block-bf16.
+10. the generic entry point (a main path): `python -m diffusionsat_torch.main
+   --model query_sat --task 3-sat` in-process at full width on a cut set
+   (2000 training and 2000 test instances where a real run takes 100 000
+   and 10 000): 20 flat train steps through the kernel with two evals and
+   a checkpoint, then every eval mode, with the sweeps cut in list length
+   (16, 64 and 256 rounds; 3 node budgets; 2 variable counts): the
+   launches must equal the count reckoned from the code, the loss be
+   finite, each mode write its file and the cactus CSV hold one row per
+   test graph after the warm-up; a restore from the checkpoint that takes
+   2 more steps at exactly 128 launches each way a step; the flagship
+   through the harness on the first 4 batches of the eval split at 64
+   rounds, through the kernel and through the plain path on the same
+   draws (solved fractions within 0.01, launches as reckoned), and the
+   invariance readings (the permuted one within 4 standard errors of the
+   original), and the noise sweep over the same batches (launches as
+   reckoned, the solved fraction at noise 0 not below the last's); one
+   full-width flat train step on one batch of every
+   registry task (ksat, splot, satlib, primes, mixed, sha1, clique,
+   domset, kcolor): a finite loss and 128 launches each way; the kernel at
+   `main`'s training shapes.
 
-`python3 chip_smoke.py --only-anf` builds and runs phase 8 alone, and
-`--only-graphs` phase 9. Inference rounds run as CUDA graphs in every
+`python3 chip_smoke.py --only-anf` builds and runs phase 8 alone,
+`--only-graphs` phase 9, and `--only-main` phase 10 (after the eval
+split). Inference rounds run as CUDA graphs in every
 phase (the launches a graph captured are credited once per replay).
 
 Every line of standard output is one JSON object, except the card line of
@@ -127,7 +148,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "pretrained" / "query_sat_3sat_diffusion_mlk64.npz"
-ASSETS = ROOT / "diffusionsat_tpu" / "data" / "assets"
+ASSETS = ROOT / "diffusionsat_torch" / "data" / "assets"
 UF20 = ASSETS / "satlib" / "uf20-synth-1.cnf"
 PRIMES = ASSETS / "primes" / "primes_3599_61x59.cnf"
 ISO45 = ROOT / "pretrained" / "query_sat_3sat_diffusion_mlk64_iso45.npz"
@@ -203,6 +224,29 @@ ANF_SCRIPT_TEST_SIZE = 8
 ANF_TRAIN_STEPS = 20
 ANF_FIRST_LOSS_RTOL = 1e-4
 ANF_COMPLETION_SYSTEMS = 8
+# the generic entry point (phase 10): a cut training and test set (a real run
+# takes 100 000 and 10 000 instances: data quantity, not width; the test
+# set holds more than the cactus's 10 warm-up batches), its steps, and
+# the sweeps cut in list length (the CLI's defaults are 16..4096 rounds,
+# 21 node budgets and 9 variable counts)
+MAIN_TRAIN_SIZE = 2000
+MAIN_TEST_SIZE = 2000
+MAIN_TRAIN_STEPS = 20
+MAIN_EVAL_EVERY = 10
+MAIN_ROUND_GEN = (16, 64, 256)
+MAIN_BATCH_GEN = (3000, 11000, 20000)
+MAIN_VARIABLE_GEN = range(10, 30, 10)
+# the flagship through the harness: eval batches, rounds, the gap allowed
+# between the kernel's and the plain path's solved fractions on the same
+# draws, and the permuted invariance reading's distance from the original
+# in standard errors of the original's solved fraction
+HARNESS_BATCHES = 4
+HARNESS_ROUNDS = 64
+HARNESS_SOLVED_TOL = 0.01
+INVARIANCE_STANDARD_ERRORS = 4
+# one full-width train step on one batch of every registry task
+REGISTRY_TASKS = ("ksat", "splot", "satlib", "primes", "mixed", "sha1",
+                  "clique", "domset", "kcolor")
 
 
 T0 = time.perf_counter()
@@ -1298,15 +1342,285 @@ def graphs_phase(dev, data_dir: Path, tools: dict) -> None:
                 os.environ[k] = v
 
 
+def main_phase(dev, data_dir: Path, tools: dict, eval_batches) -> dict:
+    """Phase 10: the generic entry point. `python -m diffusionsat_torch.main`
+    in-process at full width on a cut 3-SAT set: 20 flat train steps
+    through the kernel with two evals, a checkpoint, every eval mode (the
+    sweeps' lists cut), and the launches reckoned from the code; a restore
+    that takes 2 more steps at exactly 128 launches each way a step; the
+    flagship through the harness on the first 4 batches of the eval split,
+    kernel against plain path on the same draws, the invariance readings
+    and the noise sweep; one full-width train step on one batch of every
+    registry task. Returns the launch counts and the kernels line's rows at the
+    shapes of `main`'s first training batch."""
+    import csv
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from diffusionsat_torch import main as generic
+    from diffusionsat_torch.config import parse_config
+    from diffusionsat_torch.data.datasets import SatDataset
+    from diffusionsat_torch.evaluation import harness
+    from diffusionsat_torch.evaluation.noise_sweep import noise_sweep
+    from diffusionsat_torch.graph.batch import BucketSpec
+    from diffusionsat_torch.models.query_sat import (
+        QuerySATConfig,
+        query_sat_apply,
+        query_sat_init,
+    )
+    from diffusionsat_torch.ops import segsum
+    from diffusionsat_torch.train.adabelief import adabelief
+    from diffusionsat_torch.train.checkpoint import (
+        load_params,
+        params_from_numpy,
+    )
+    from diffusionsat_torch.train.loop import (
+        TrainState,
+        build_plans,
+        evaluate_metrics,
+        make_train_step_for,
+        plan_batches,
+    )
+    from diffusionsat_torch.train.metrics import SATAccuracy, StepStatistics
+
+    sync = tools["sync"]
+    t_phase = time.perf_counter()
+
+    def seeded(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    def counted(fn):
+        """fn() with the launch counts set to 0 just before and read just
+        after: (result, launches, seconds)."""
+        segsum.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, dict(segsum.LAUNCHES), time.perf_counter() - t0
+
+    # -- `main`'s splits, generated before the counted run ----------------
+    run_root = data_dir / "main_runs"
+    shutil.rmtree(run_root, ignore_errors=True)
+    argv = ["--model", "query_sat", "--task", "3-sat",
+            "--train_size", str(MAIN_TRAIN_SIZE),
+            "--test_size", str(MAIN_TEST_SIZE),
+            "--eval_every", str(MAIN_EVAL_EVERY),
+            "--ckpt_every", str(MAIN_EVAL_EVERY),
+            "--data_dir", str(data_dir), "--train_dir", str(run_root)]
+    cfg = parse_config(argv)
+    bucket = BucketSpec.for_node_budget(cfg.max_nodes_per_batch)
+    t0 = time.perf_counter()
+    dataset = SatDataset(generic.build_instances(cfg), bucket,
+                         cache_dir=data_dir,
+                         name=f"3-sat_{cfg.min_vars}_{cfg.max_vars}_"
+                              f"{cfg.train_size}", seed=cfg.seed,
+                         gen_workers=cfg.gen_workers or None)
+    train_batches = dataset.train_data().batches
+    test = list(dataset.test_data())
+    # the sweeps' small splits, in this process: a pool's spawned workers
+    # take longer to start than these 10-50 instances take to generate
+    one = dataclasses.replace(cfg, gen_workers=1)
+    vargen = {c: len(generic._test_split(one, bucket, f"vargen_{c}_{c}",
+                                         c, c, 10))
+              for c in MAIN_VARIABLE_GEN}
+    for budget in MAIN_BATCH_GEN:
+        generic._test_split(one, BucketSpec.for_node_budget(budget),
+                            f"batchgen_{budget}", cfg.min_vars,
+                            cfg.max_vars, 50)
+    emit(phase="main_split", seconds=time.perf_counter() - t0,
+         train_batches=len(train_batches), test_batches=len(test),
+         test_graphs=[int(b.n_graphs) for b in test],
+         vargen_batches=vargen)
+
+    # -- main in-process: train, then every eval mode -----------------------
+    rounds = cfg.test_rounds
+    n_test = len(test)
+    per_round = 2      # launches of each direction in one inference round
+    expected = (MAIN_TRAIN_STEPS * LAUNCHES_PER_TRAIN_STEP +
+                per_round * rounds * (
+                    MAIN_TRAIN_STEPS // MAIN_EVAL_EVERY * min(8, n_test) +
+                    n_test +                       # --evaluate
+                    3 * min(5, n_test) +           # --test_invariance
+                    n_test +                       # --make_cactus
+                    sum(vargen.values()) +         # --evaluate_variable_gen
+                    2 * len(MAIN_BATCH_GEN)) +     # --evaluate_batch_gen
+                per_round * n_test * sum(MAIN_ROUND_GEN))
+    flags = ["--" + f for f in generic.EVAL_FLAGS]
+    res, launched, main_s = counted(lambda: generic.main(
+        argv + ["--train_steps", str(MAIN_TRAIN_STEPS)] + flags,
+        round_gen_rounds=MAIN_ROUND_GEN, batch_gen_budgets=MAIN_BATCH_GEN,
+        variable_gen_counts=MAIN_VARIABLE_GEN))
+    if launched != {d: expected for d in segsum.CNF_DIRECTIONS}:
+        raise RuntimeError(f"main: launches {launched}, reckoned "
+                           f"{expected} each way")
+    run_dir = Path(res["run_dir"])
+    log = [json.loads(x) for x in
+           (run_dir / "train_log.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in log if "loss" in r]
+    evals = [r for r in log if "total_accuracy" in r]
+    if not losses or not np.isfinite(losses).all() or len(evals) != 2:
+        raise RuntimeError(f"main: train log {log}")
+    files = ("gen_steps_result.txt", "gen_batch_size_results.txt",
+             "gen_variables_size_result.txt", "query_sat_cactus.csv")
+    for name in files:
+        if not (run_dir / name).read_text().strip():
+            raise RuntimeError(f"main: {name} empty")
+    with open(run_dir / "query_sat_cactus.csv") as f:
+        cactus_rows = len(list(csv.reader(f))) - 1
+    graphs_after_warmup = sum(int(b.n_graphs) for b in test[10:])
+    if cactus_rows != graphs_after_warmup or cactus_rows == 0:
+        raise RuntimeError(f"main: cactus rows {cactus_rows}, test graphs "
+                           f"after the warm-up {graphs_after_warmup}")
+    roundgen = {r: v["total_accuracy"]
+                for r, v in res["evaluate_round_gen"].items()}
+    emit(phase="main", seconds=main_s, launches=launched,
+         launches_reckoned=expected, steps=res["state"].step,
+         losses=losses, evals=evals,
+         mode_seconds=res["seconds"], evaluate=res["evaluate"],
+         invariance=res["test_invariance"],
+         classic_solver_s_per_batch=res["test_classic_solver"],
+         cactus_rows=cactus_rows, round_gen_total_accuracy=roundgen,
+         round_gen_seconds={r: v["elapsed"] for r, v in
+                            res["evaluate_round_gen"].items()},
+         batch_gen_warm_s=res["evaluate_batch_gen"],
+         variable_gen={c: v["total_accuracy"] for c, v in
+                       res["evaluate_variable_gen"].items()})
+
+    # -- restore: 2 more steps from the checkpoint the run left -------------
+    ckpt_dir = run_dir / "ckpt"
+    res2, restore_launched, restore_s = counted(lambda: generic.main(
+        argv + ["--train_steps", str(MAIN_TRAIN_STEPS + 2), "--restore",
+                str(ckpt_dir), "--eval_every", "1000"]))
+    if res2["state"].step != MAIN_TRAIN_STEPS + 2 or restore_launched != {
+            d: 2 * LAUNCHES_PER_TRAIN_STEP for d in segsum.CNF_DIRECTIONS}:
+        raise RuntimeError(f"main restore: step {res2['state'].step}, "
+                           f"launches {restore_launched}")
+    emit(phase="main_restore", seconds=restore_s,
+         step=res2["state"].step, launches=restore_launched,
+         checkpoints=sorted(p.name for p in ckpt_dir.iterdir()))
+
+    # -- the flagship through the harness: kernel and plain path ------------
+    tree, meta = load_params(CKPT)
+    params = params_from_numpy(tree, dev)
+    cfg64 = QuerySATConfig.from_meta(meta["config"],
+                                     test_rounds=HARNESS_ROUNDS)
+    batches = eval_batches[:HARNESS_BATCHES]
+    n_graphs = sum(int(b.n_graphs) for b in batches)
+    kernel, kernel_launched, kernel_s = counted(
+        lambda: harness.evaluate_round_generalization(
+            params, lambda r: dataclasses.replace(cfg64, test_rounds=r),
+            batches, run_root / "flagship_rounds.txt",
+            rounds_list=[HARNESS_ROUNDS], device=dev)[HARNESS_ROUNDS])
+
+    def plain_apply(params, cfg, batch, generator, training, **kw):
+        # no `plans` argument: the predict step runs the plain sums
+        return query_sat_apply(params, cfg, batch, generator, training, **kw)
+
+    plain, plain_launched, plain_s = counted(lambda: evaluate_metrics(
+        params, cfg64, [b.to(dev) for b in batches],
+        [SATAccuracy(), StepStatistics()], seeded(0), apply_fn=plain_apply,
+        device=dev))
+    reckoned = per_round * HARNESS_ROUNDS * len(batches)
+    gap = abs(kernel["total_accuracy"] - plain["total_accuracy"])
+    if kernel_launched != {d: reckoned for d in segsum.CNF_DIRECTIONS} or \
+            sum(plain_launched.values()) != 0 or gap > HARNESS_SOLVED_TOL:
+        raise RuntimeError(f"harness flagship: kernel {kernel} launches "
+                           f"{kernel_launched} (reckoned {reckoned}), plain "
+                           f"{plain} launches {plain_launched}")
+    invariance, inv_launched, inv_s = counted(lambda: harness.test_invariance(
+        params, cfg64, batches, steps=len(batches), device=dev))
+    p_orig = invariance["original"]
+    se = max(float(np.sqrt(p_orig * (1 - p_orig) / n_graphs)), 1 / n_graphs)
+    if abs(invariance["permuted"] - p_orig) > INVARIANCE_STANDARD_ERRORS * se \
+            or inv_launched != {d: 3 * reckoned for d in segsum.CNF_DIRECTIONS}:
+        raise RuntimeError(f"invariance: {invariance}, standard error {se}, "
+                           f"launches {inv_launched}")
+    curve, sweep_launched, sweep_s = counted(lambda: noise_sweep(
+        params, cfg64, batches, steps=len(batches), device=dev))
+    if sweep_launched != {d: reckoned for d in segsum.CNF_DIRECTIONS} or \
+            not np.isfinite(curve["loss"]).all() or \
+            curve["total_accuracy"][0] < curve["total_accuracy"][-1]:
+        raise RuntimeError(f"noise sweep: {curve}, launches "
+                           f"{sweep_launched}")
+    emit(phase="harness_flagship", batches=len(batches), graphs=n_graphs,
+         rounds=HARNESS_ROUNDS, kernel=kernel, plain=plain,
+         solved_gap=gap, launches=kernel_launched,
+         launches_reckoned=reckoned, kernel_seconds=kernel_s,
+         plain_seconds=plain_s, invariance=invariance,
+         invariance_standard_error=se, invariance_seconds=inv_s,
+         invariance_launches=inv_launched, noise_sweep=curve,
+         noise_sweep_seconds=sweep_s, noise_sweep_launches=sweep_launched)
+
+    # -- one full-width flat train step on every registry task --------------
+    model_cfg = QuerySATConfig()
+    opt = adabelief(learning_rate=1e-3, eps=1e-8, clip_gradients=True)
+    step = make_train_step_for(query_sat_apply, model_cfg, opt, dev)
+    tasks = {}
+    for task in REGISTRY_TASKS:
+        t0 = time.perf_counter()
+        # 16 instances, generated in this process and labelled by CDCL
+        # (uniform labels of the larger formulas take minutes)
+        task_cfg = parse_config(
+            ["--task", task, "--train_size", "16", "--test_size", "1",
+             "--use_unigen", "false", "--gen_workers", "1", "--max_vars",
+             "200" if task == "primes" else "20"])
+        batch = SatDataset(generic.build_instances(task_cfg), bucket,
+                           cache_dir=data_dir, name=f"smoke_{task}",
+                           seed=0, gen_workers=task_cfg.gen_workers or None
+                           ).train_data().batches[0]
+        data_s = time.perf_counter() - t0
+        (batch, plans), = plan_batches([batch], dev)
+        params0 = query_sat_init(seeded(0), model_cfg)
+        state = TrainState(params=params0, opt_state=opt.init(params0),
+                           step=0, generator=seeded(1))
+        (state, out), task_launched, step_s = counted(
+            lambda: step(state, batch, plans))
+        loss = float(out["loss"])
+        if not np.isfinite(loss) or task_launched != {
+                d: LAUNCHES_PER_TRAIN_STEP for d in segsum.CNF_DIRECTIONS}:
+            raise RuntimeError(f"registry task {task}: loss {loss}, "
+                               f"launches {task_launched}")
+        tasks[task] = dict(loss=loss, graphs=int(batch.n_graphs),
+                           vars=int(batch.n_vars),
+                           clauses=int(batch.n_clauses),
+                           data_seconds=data_s, step_seconds=step_s)
+    emit(phase="registry_tasks", tasks=tasks,
+         launches_per_step=LAUNCHES_PER_TRAIN_STEP)
+
+    # -- the kernel at `main`'s training shapes -----------------------------
+    gen = seeded(0)
+    rows = {}
+    first = build_plans(train_batches[0]).to(dev)
+    for plan in (first.lit_to_clause, first.clause_to_lit):
+        row, shape = tools["kernel_row"](plan, model_cfg.query_maps, gen)
+        emit(phase="kernel_vs_plain", batch="main_train_batch_0",
+             direction=plan.name, **shape, **row)
+        rows[plan.name] = row
+    shutil.rmtree(run_root)
+    seconds = time.perf_counter() - t_phase
+    emit(phase="main_phase", seconds=seconds)
+    return {"rows": rows, "seconds": seconds,
+            "launches_main": launched,
+            "launches_main_restore": restore_launched,
+            "launches_harness": {d: kernel_launched[d] + inv_launched[d] +
+                                 sweep_launched[d]
+                                 for d in segsum.CNF_DIRECTIONS}}
+
+
 def main(argv: list[str]) -> int:
     import torch
 
-    if argv not in ([], ["--only-anf"], ["--only-graphs"]):
-        print("usage: chip_smoke.py [--only-anf | --only-graphs]",
-              file=sys.stderr)
+    if argv not in ([], ["--only-anf"], ["--only-graphs"], ["--only-main"]):
+        print("usage: chip_smoke.py [--only-anf | --only-graphs | "
+              "--only-main]", file=sys.stderr)
         return 2
     only_anf = argv == ["--only-anf"]
     only_graphs = argv == ["--only-graphs"]
+    only_main = argv == ["--only-main"]
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1525,6 +1839,22 @@ def main(argv: list[str]) -> int:
     emit(phase="eval_split", seconds=time.perf_counter() - t0,
          batches=len(eval_batches),
          instances=sum(int(b.n_graphs) for b in eval_batches))
+    if only_main:
+        generic = main_phase(dev, data_dir, tools, eval_batches)
+        print(json.dumps({"kernels": [dict(
+            name=f"gather_segsum:{d}", route="cuda", source=KERNEL_SOURCE,
+            replaces=REPLACES, launches=generic["launches_main"][d],
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            shapes="main_train_batch_0, F=128",
+            launches_main_restore=generic["launches_main_restore"][d],
+            launches_harness=generic["launches_harness"][d])
+            for d, r in generic["rows"].items()]}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # the flagship's params and the 20 000-node batch, flat with its plans
     # and re-blocked, shared by the phases below
@@ -2241,6 +2571,7 @@ def main(argv: list[str]) -> int:
     uni_launches = uniformity_phase(dev, data_dir, sync, busy_seconds)
     anf = anf_phase(dev, data_dir, tools)
     graphs_phase(dev, data_dir, tools)
+    generic = main_phase(dev, data_dir, tools, eval_batches)
 
 
     # one row per kernel: times at the sampler's shapes, launches of the
@@ -2260,7 +2591,12 @@ def main(argv: list[str]) -> int:
                     launches_per_train_step=train_launches["per_step"][d],
                     launches_uniformity_flat=uni_launches[d],
                     uniformity_shapes=kernel_rows["p24_formula_0_x125"][d],
-                    train_shapes=kernel_rows["threshold3sat_20k"][d])
+                    train_shapes=kernel_rows["threshold3sat_20k"][d],
+                    launches_main=generic["launches_main"][d],
+                    launches_main_restore=generic[
+                        "launches_main_restore"][d],
+                    launches_harness=generic["launches_harness"][d],
+                    main_shapes=generic["rows"][d])
                for d, r in kernel_rows["primes_3599_x15"].items()]
     print(json.dumps({"kernels": kernels + anf["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,10 @@
 Counterpart of the TPU package's `config.py`: the same dataclass, flags
 and defaults, built from argparse, plus `--device` (the port runs on the
 card unless asked for the CPU) and `--gen_workers` (processes that
-generate a missing data split). The registry choice lists hold what the
-port has; any other name raises naming the ROADMAP item that ports it.
+generate a missing data split). `--model`, `--task` and
+`--sat_solver_for_generators` take the names of the registries
+(`registry.py`), as there; a registered model that the port does not have
+yet raises when it is resolved, naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -13,6 +15,12 @@ import argparse
 import dataclasses
 import time
 from pathlib import Path
+
+from diffusionsat_torch.registry import (
+    DATASET_REGISTRY,
+    MODEL_REGISTRY,
+    SOLVER_REGISTRY,
+)
 
 
 @dataclasses.dataclass
@@ -102,7 +110,7 @@ class RunConfig:
     # accumulation); see ops/dense_ops.py
     incidence_precision: str = "default"
     # data-parallel devices; the port trains on one (ROADMAP Queue 1,
-    # item 11): a value above 1 raises
+    # item 7): a value above 1 raises
     n_devices: int = 1
 
     seed: int = 0
@@ -118,21 +126,10 @@ class RunConfig:
         return Path(self.train_dir) / f"{self.model}_{self.task}{label}_{stamp}"
 
 
-# what the port has of the TPU package's registries
-MODELS = ("query_sat",)
-TASKS = ("3-sat",)
-SOLVERS = ("cdcl",)
-
-
-def _choice(kind: str, names: tuple[str, ...]):
-    def parse(value: str) -> str:
-        if value not in names:
-            raise NotImplementedError(
-                f"{kind} {value!r} is not ported (the port has "
-                f"{', '.join(names)}); it waits for the ROADMAP Queue 1 "
-                "item 9")
-        return value
-    return parse
+# the registries' names, which the three selection flags accept
+MODELS = tuple(MODEL_REGISTRY.registered_names)
+TASKS = tuple(DATASET_REGISTRY.registered_names)
+SOLVERS = tuple(SOLVER_REGISTRY.registered_names)
 
 
 def parse_config(argv: list[str] | None = None) -> RunConfig:
@@ -145,14 +142,11 @@ def parse_config(argv: list[str] | None = None) -> RunConfig:
             p.add_argument(name, type=lambda s: s.lower() in ("1", "true"),
                            default=default)
         elif f.name == "model":
-            p.add_argument(name, default=default,
-                           type=_choice("model", MODELS))
+            p.add_argument(name, default=default, choices=MODELS)
         elif f.name == "task":
-            p.add_argument(name, default=default,
-                           type=_choice("task", TASKS))
+            p.add_argument(name, default=default, choices=TASKS)
         elif f.name == "sat_solver_for_generators":
-            p.add_argument(name, default=default,
-                           type=_choice("solver", SOLVERS))
+            p.add_argument(name, default=default, choices=SOLVERS)
         else:
             typ = type(default) if default is not None else str
             p.add_argument(name, type=typ, default=default)

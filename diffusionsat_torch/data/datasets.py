@@ -37,11 +37,13 @@ _OPTIONAL_FIELDS = ("solutions_k", "label_isolation_k")
 
 
 def diffusion_3sat_name(min_vars: int, max_vars: int, train_size: int,
-                        label_samples: int = 1) -> str:
-    """The cache name the TPU package's training script gives the threshold
-    3-SAT diffusion dataset; a K-row label bank (K > 1) is another schema
-    and adds `_k{K}`."""
-    name = f"diffusion_3sat_{min_vars}_{max_vars}_{train_size}"
+                        label_samples: int = 1, hard_3sat: bool = True
+                        ) -> str:
+    """The cache name the TPU package's training script gives its diffusion
+    dataset: threshold 3-SAT, or k-SAT with `hard_3sat=False`; a K-row
+    label bank (K > 1) is another schema and adds `_k{K}`."""
+    kind = "3sat" if hard_3sat else "ksat"
+    name = f"diffusion_{kind}_{min_vars}_{max_vars}_{train_size}"
     if label_samples > 1:
         name += f"_k{label_samples}"
     return name

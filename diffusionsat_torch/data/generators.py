@@ -1,10 +1,13 @@
 """SAT instance generators, driven by the native solver.
 
-The same streams as the TPU package's `data/generators.py` for the 3-SAT
-path: the two random streams (`random.Random` and numpy's `default_rng`)
-interleave in the same order and the solver gets the same seeds, so both
-packages generate the same instances.
+The same streams as the TPU package's `data/generators.py`: the two random
+streams (`random.Random` and numpy's `default_rng`) interleave in the same
+order and the solver gets the same seeds, so both packages generate the
+same instances.
 
+- `KSatInstances`: NeuroSAT-style k-SAT: random clauses of geometric length
+  until the formula turns UNSAT, one literal of the last clause negated,
+  then clauses removed to multiply the expected solution count;
 - `SAT3Instances`: random 3-SAT at the satisfiability threshold
   m = 4.258 n + 58.26 n^(-2/3), rejection-sampled for SAT, each instance
   with the solver's model attached.
@@ -12,13 +15,11 @@ packages generate the same instances.
   instance: the base generator's, a uniform sample (`use_unigen=True`) or a
   CDCL model, or a bank of K uniform samples (`n_label_samples > 1`); in
   test mode it can repeat one fixed formula (`test_cnf`).
-
-The NeuroSAT-style `KSatInstances` is not ported yet (ROADMAP Queue 1,
-item 12).
 """
 
 from __future__ import annotations
 
+import math
 import random
 from abc import ABC, abstractmethod
 from typing import Iterator
@@ -51,6 +52,82 @@ class SatInstances(ABC):
         """Return n_shards disjoint-seed copies covering the same totals,
         enabling process-parallel generation. None = not splittable."""
         return None
+
+
+def _dedup_and_subsume(clauses: list[list[int]]) -> list[list[int]]:
+    f = cnf_mod.CNF(clauses=clauses)
+    f.reduce_clauses()
+    return f.clauses()
+
+
+class KSatInstances(SatInstances):
+    """NeuroSAT-paper k-SAT generation."""
+
+    def __init__(self, min_vars: int = 3, max_vars: int = 30,
+                 train_size: int = 300_000, test_size: int = 10_000,
+                 desired_multiplier_for_the_number_of_solutions: int = 10,
+                 seed: int = 0):
+        self.min_vars = min_vars
+        self.max_vars = max_vars
+        self.train_size = train_size
+        self.test_size = test_size
+        self.multiplier = desired_multiplier_for_the_number_of_solutions
+        self.seed = seed
+        self.p_k_2 = 0.3
+        self.p_geo = 0.4
+
+    def train_generator(self):
+        return self._generator(self.train_size, self.seed)
+
+    def test_generator(self):
+        return self._generator(self.test_size, self.seed + 1_000_003)
+
+    def split(self, n_shards: int):
+        shards = []
+        for i in range(n_shards):
+            size = self.train_size // n_shards + \
+                (1 if i < self.train_size % n_shards else 0)
+            tsize = self.test_size // n_shards + \
+                (1 if i < self.test_size % n_shards else 0)
+            shards.append(KSatInstances(
+                self.min_vars, self.max_vars, train_size=size,
+                test_size=tsize,
+                desired_multiplier_for_the_number_of_solutions=self.multiplier,
+                seed=self.seed + 7919 * (i + 1)))
+        return shards
+
+    def _generate_k_clause(self, rng: random.Random, nprng, n: int, k: int
+                           ) -> list[int]:
+        vs = nprng.choice(n, size=min(n, k), replace=False)
+        return [int(v + 1) if rng.random() < 0.5 else -int(v + 1) for v in vs]
+
+    def _generator(self, size: int, seed: int):
+        rng = random.Random(seed)
+        nprng = np.random.default_rng(seed)
+        for _ in range(size):
+            n_vars = rng.randint(self.min_vars, self.max_vars)
+            clauses: list[list[int]] = []
+            while True:
+                k_base = 1 if rng.random() < self.p_k_2 else 2
+                k = k_base + int(nprng.geometric(self.p_geo))
+                clause = self._generate_k_clause(rng, nprng, n_vars, k)
+                is_sat, _ = solve(clauses + [clause], n_vars, seed=seed)
+                if is_sat:
+                    clauses.append(clause)
+                else:
+                    # negate one literal to regain satisfiability
+                    clauses.append([-clause[0]] + clause[1:])
+                    break
+            clauses = _dedup_and_subsume(clauses)
+            if self.multiplier > 1:
+                # remove clauses to multiply the expected solution count
+                m = len(clauses)
+                x = pow(2, n_vars * 1.0 / m)
+                d = round(math.log(self.multiplier, x), 0) if x > 1 else 0
+                d = int(max(min(d, m - 1), 0))
+                for i in sorted(rng.sample(range(m), d), reverse=True):
+                    clauses = clauses[:i] + clauses[i + 1:]
+            yield n_vars, clauses, None
 
 
 class SAT3Instances(SatInstances):

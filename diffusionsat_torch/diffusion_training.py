@@ -3,9 +3,10 @@
     python -m diffusionsat_torch.diffusion_training --train_steps 10000
 
 Counterpart of the TPU package's root `diffusion_training.py`, with its
-flags and defaults: QuerySAT on diffusion-labeled hard 3-SAT, AdaBelief
-with cosine decay, periodic eval, diagnostics and checkpoints. It runs on
-the card unless `--device cpu` is given.
+flags and defaults: QuerySAT on diffusion-labeled hard 3-SAT (NeuroSAT-style
+k-SAT with `--use_hard_3sat false`), AdaBelief with cosine decay, periodic
+eval, diagnostics and checkpoints. It runs on the card unless `--device
+cpu` is given.
 
 Two execution layouts:
 
@@ -51,6 +52,7 @@ from diffusionsat_torch.data.datasets import (
 )
 from diffusionsat_torch.data.generators import (
     DiffusionSatInstances,
+    KSatInstances,
     SAT3Instances,
 )
 from diffusionsat_torch.device import resolve_device
@@ -71,6 +73,7 @@ from diffusionsat_torch.models.query_sat import (
 from diffusionsat_torch.models.query_sat_dense import query_sat_dense_apply
 from diffusionsat_torch.ops import dense_ops
 from diffusionsat_torch.ops.tiled_ops import build_tiled_incidence
+from diffusionsat_torch.registry import MODEL_REGISTRY
 from diffusionsat_torch.train.adabelief import (
     adabelief,
     cosine_decay_schedule,
@@ -100,13 +103,11 @@ from diffusionsat_torch.uniformity.reweight import attach_logit_table
 
 
 def _check_ported(cfg: RunConfig) -> None:
-    if not cfg.use_hard_3sat:
-        raise NotImplementedError(
-            "KSatInstances (--use_hard_3sat false) waits for the ROADMAP "
-            "Queue 1 item 12 'Host code'")
+    # a registered model the port lacks raises here, naming its item
+    MODEL_REGISTRY.resolve(cfg.model)
     if cfg.n_devices > 1:
         raise NotImplementedError(
-            "--n_devices > 1 waits for the ROADMAP Queue 1 item 11 "
+            "--n_devices > 1 waits for the ROADMAP Queue 1 item 7 "
             "'Multi-device'")
     _flat_backend()
 
@@ -123,17 +124,26 @@ def _flat_backend() -> str:
 
 
 def build_dataset(cfg: RunConfig) -> SatDataset:
-    """The training runs' dataset, under the cache name the TPU package's
+    """The training runs' dataset (threshold 3-SAT, or k-SAT with
+    `--use_hard_3sat false`), under the cache name the TPU package's
     training script gives it, so either package reads the other's cache."""
-    base = SAT3Instances(min_vars=cfg.min_vars, max_vars=cfg.max_vars,
-                         train_size=cfg.train_size, test_size=cfg.test_size,
-                         seed=cfg.seed)
+    if cfg.use_hard_3sat:
+        base = SAT3Instances(min_vars=cfg.min_vars, max_vars=cfg.max_vars,
+                             train_size=cfg.train_size,
+                             test_size=cfg.test_size, seed=cfg.seed)
+    else:
+        base = KSatInstances(
+            min_vars=cfg.min_vars, max_vars=cfg.max_vars,
+            train_size=cfg.train_size, test_size=cfg.test_size,
+            desired_multiplier_for_the_number_of_solutions=(
+                cfg.desired_multiplier_for_the_number_of_solutions),
+            seed=cfg.seed)
     instances = DiffusionSatInstances(base, use_unigen=cfg.use_unigen,
                                       seed=cfg.seed,
                                       n_label_samples=cfg.label_samples)
     bucket = BucketSpec.for_node_budget(cfg.max_nodes_per_batch)
     name = diffusion_3sat_name(cfg.min_vars, cfg.max_vars, cfg.train_size,
-                               cfg.label_samples)
+                               cfg.label_samples, cfg.use_hard_3sat)
     return SatDataset(instances, bucket, cache_dir=cfg.data_dir, name=name,
                       force_data_gen=cfg.force_data_gen, seed=cfg.seed,
                       gen_workers=cfg.gen_workers or None)

@@ -105,6 +105,9 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
         restore_model_params,
     )
     from diffusionsat_torch.anf_eval import main as anf_eval_main
+    from diffusionsat_torch.main import main as generic_main
+    from diffusionsat_torch.evaluation import harness
+    from diffusionsat_torch.evaluation.noise_sweep import noise_sweep
     from diffusionsat_torch.anf_training import main as anf_train_main
     from diffusionsat_torch.data.anf import RandomAnfInstances
     from diffusionsat_torch.graph.anf_batch import ANFBucket, build_anf_batch
@@ -161,7 +164,16 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
             lambda: anf_eval_main(["--ckpt", anf_ckpt, "--data_dir",
                                    str(tmp_path)]),
             lambda: anf_train_main(["--data_dir", str(tmp_path),
-                                    "--train_dir", str(tmp_path)])):
+                                    "--train_dir", str(tmp_path)]),
+            lambda: generic_main(["--data_dir", str(tmp_path),
+                                  "--train_dir", str(tmp_path),
+                                  "--evaluate"]),
+            lambda: noise_sweep(params, cfg, [batch], steps=1),
+            lambda: harness.test_invariance(params, cfg, [batch], steps=1),
+            lambda: harness.make_cactus(params, cfg, [batch],
+                                        tmp_path / "c.csv"),
+            lambda: harness.evaluate_round_generalization(
+                params, lambda r: cfg, [batch], tmp_path / "r.txt")):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert not list(tmp_path.iterdir())    # refused before any data work

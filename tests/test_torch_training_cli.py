@@ -44,15 +44,17 @@ def test_defaults_equal_the_tpu_packages_field_by_field():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--model", "neuro_sat"], "item 9"),
-    (["--task", "k-sat"], "item 9"),
-    (["--use_hard_3sat", "false"], "item 12"),
-    (["--model", "attention_sat"], "item 9"),
-    (["--n_devices", "2"], "item 11"),
+    (["--model", "neuro_sat"], "item 4"),
+    # k-SAT (--use_hard_3sat false) and the registry's tasks are ported:
+    # the registered models the port lacks still raise, naming their item
+    (["--model", "neurocore"], "item 4"),
+    (["--model", "query_sat_lit"], "item 4"),
+    (["--model", "attention_sat"], "item 4"),
+    (["--n_devices", "2"], "item 7"),
     # --mega_steps no longer raises: with another unported option it is
     # that option's item that the error names
-    (["--mega_steps", "8", "--n_devices", "2"], "item 11"),
-    (["--label_samples", "4", "--use_hard_3sat", "false"], "item 12"),
+    (["--mega_steps", "8", "--n_devices", "2"], "item 7"),
+    (["--label_samples", "4", "--model", "simple_neurosat"], "item 4"),
 ])
 def test_unported_options_raise_naming_their_item(argv, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
