@@ -120,9 +120,27 @@ Phases, each of which raises (exit code 1) on failure:
    domset, kcolor): a finite loss and 128 launches each way; the kernel at
    `main`'s training shapes.
 
+11. the other models (a main path): NeuroSAT, NeuroCore, SimpleNeuroSAT,
+   QuerySATLit and AttentionSAT at the widths `main` gives them (128 /
+   128 maps, 32 train and 64 test rounds where the config has them,
+   NeuroSAT 32 and AttentionSAT 16) on the 20 000-node batch, random
+   params from a seed: the kernel path against the kernel's plain version
+   over the same plans at full depth (test-mode logits and loss, one
+   training step's loss and every parameter gradient) and against the
+   unplanned path at 4 rounds (the gradients with both paths' segment sums
+   in the plans' order), the launches of a forward and of a step against
+   `model_launches`, the count reckoned from the code, a step's wall,
+   busy time and peak memory; then `python -m diffusionsat_torch.main
+   --model <name>` in-process on phase 10's split, 4 steps and
+   `--evaluate`: a finite loss and launches as reckoned; and the kernel on
+   the batch's four plans, AttentionSAT's edge -> literal pair included.
+
 `python3 chip_smoke.py --only-anf` builds and runs phase 8 alone,
-`--only-graphs` phase 9, and `--only-main` phase 10 (after the eval
-split). Inference rounds run as CUDA graphs in every
+`--only-graphs` phase 9, `--only-main` phase 10 (after the eval split),
+and `--only-models` phase 11 (generating `main`'s split when phase 10 has
+not left it). `--grad-gate-study` builds and reads phase 11's 4-round
+gradient gate on more batches and seeds, sound and with faults planted
+(`grad_gate_study`). Inference rounds run as CUDA graphs in every
 phase (the launches a graph captured are credited once per replay).
 
 Every line of standard output is one JSON object, except the card line of
@@ -137,6 +155,7 @@ repository, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -247,6 +266,249 @@ INVARIANCE_STANDARD_ERRORS = 4
 # one full-width train step on one batch of every registry task
 REGISTRY_TASKS = ("ksat", "splot", "satlib", "primes", "mixed", "sha1",
                   "clique", "domset", "kcolor")
+# the other model family (phase 11), at the widths `main` gives it
+# (feature_maps 128, query_maps 128, train_rounds 32, test_rounds 64 where
+# the config has the field: NeuroSAT runs 32 rounds, AttentionSAT 16)
+OTHER_MODELS = ("neuro_sat", "neurocore", "simple_neurosat", "query_sat_lit",
+                "attention_sat")
+OTHER_MODELS_STEPS = 4
+# kernel path against the kernel's plain version over the same plans, at
+# `main`'s depth: the two sum every segment in plan order, so they must
+# agree to f32 summation order (in practice to the bit)
+OTHER_MODELS_SAME_ORDER_TOL = dict(rtol=1e-5, atol=1e-5)
+OTHER_MODELS_SAME_ORDER_GRAD_TOL = 1e-4
+# kernel path against the unplanned path (gather and segment sums, no
+# plans) at OTHER_MODELS_SHORT_ROUNDS rounds: these random models amplify
+# f32 rounding with depth (NeuroCore's 64-round logits lie O(1) from a
+# float64 run, a hundredth of that at 4 rounds), so the depth is cut;
+# logits to this share of their largest entry and the loss relative, each
+# path in its own summation order. Gradients are compared with every
+# segment sum of both paths in row order, the plans' order
+# (`sequential_segment_sums`): in any two orders the standardized states of
+# NeuroCore and SimpleNeuroSAT leave them up to 0.1 of a tensor's largest
+# entry apart, either path as far from float64 as the other, and a planted
+# 1 % error or a plan that lost one edge in a thousand hides in that
+# spread (`--grad-gate-study`). Each tensor's error is a share of its
+# largest entry, floored at a hundredth of the largest gradient of all.
+# The tolerance is the geometric mean of the study's largest sound reading
+# (1.6e-3, NeuroCore) and its smallest reading of a planted fault (3.5e-3,
+# NeuroCore with one edge in a thousand dropped), 45 cases on an H100
+OTHER_MODELS_SHORT_ROUNDS = 4
+OTHER_MODELS_LOGIT_SHARE = 2e-3
+OTHER_MODELS_LOSS_RTOL = 1e-4
+OTHER_MODELS_ORDERED_GRAD_TOL = 2.4e-3
+# `--grad-gate-study`: batches and params/noise seeds per model, and the
+# faults planted in the planned sums' backward (`planted_fault`)
+GATE_STUDY_BATCHES = 3
+GATE_STUDY_SEEDS = 3
+GATE_STUDY_FAULTS = ("scale_1e-2", "drop_1000", "drop_100")
+
+
+@contextlib.contextmanager
+def plain_version():
+    """Every planned sum through the kernel's plain version (the same plans,
+    the same order) instead of the kernel, and no launch counted."""
+    from diffusionsat_torch.ops import segsum
+
+    kernel = segsum.gather_segsum
+
+    def plain(x, plan):
+        segsum._check(x, plan)
+        return segsum.segsum_plain(x, plan)
+
+    segsum.gather_segsum = plain
+    try:
+        yield
+    finally:
+        segsum.gather_segsum = kernel
+
+
+def model_launches(name: str, rounds: int, training: bool) -> dict:
+    """Kernel launches per plan direction of one forward of `rounds` rounds
+    (`training=False`) or one training step (forward and backward) of a
+    model of the other family with plans, reckoned from the code:
+
+    - NeuroSAT and NeuroCore, a round: lit -> clause 3 (the messages, and
+      two losses or a loss and the SAT check), clause -> lit 1; backward 1
+      and 2 (every aggregation but the rounded count's feeds the loss);
+    - SimpleNeuroSAT: one more each way for the query's clause loss;
+    - QuerySATLit: 3 and 2 forward (the closed-form query gradient takes
+      one each way), 2 and 2 backward;
+    - AttentionSAT: 5 and 2 forward and the attention's edge -> literal sum,
+      backward 2 and 4 and the transpose of the edge sum, less one clause
+      -> literal in the first round, whose literal state is the constant
+      zero state."""
+    per_round = {"neuro_sat": ((3, 1), (4, 3)),
+                 "neurocore": ((3, 1), (4, 3)),
+                 "simple_neurosat": ((4, 1), (5, 4)),
+                 "query_sat_lit": ((3, 2), (5, 4)),
+                 "attention_sat": ((5, 2), (7, 6))}
+    l2c, c2l = per_round[name][training]
+    out = {"lit_to_clause": l2c * rounds, "clause_to_lit": c2l * rounds}
+    if name == "attention_sat":
+        out["edge_to_lit"] = rounds
+        if training:
+            out["clause_to_lit"] -= 1
+            out["lit_to_edge"] = rounds
+    return out
+
+
+def grads_err(ga, gb) -> float:
+    """Largest gradient error as a share of its tensor's largest entry,
+    floored at a hundredth of the largest gradient of all."""
+    floor = max(g.abs().max().item() for g in gb) / 100
+    return max((a - b).abs().max().item() /
+               max(b.abs().max().item(), floor) for a, b in zip(ga, gb))
+
+
+def other_model(name: str, cfg, batch, dev, params_seed: int = 0,
+                noise_seed: int = 1):
+    """One model of the other family at the widths `cfg` (main's config)
+    gives it, random params from `params_seed`, and the calls phase 11 and
+    the gradient-gate study make of it on `batch`: `rounds(training)`,
+    `forward(plans, rounds)` (test mode), `train_step(plans, rounds)` ->
+    (loss, parameter gradients) and `train_step_f64(rounds)`, the
+    unplanned path's gradients in float64. Every call draws its round
+    noise anew from `noise_seed`."""
+    import dataclasses
+    import types
+
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from diffusionsat_torch.nn import mlp as mlp_module
+    from diffusionsat_torch.registry import MODEL_REGISTRY
+
+    def seeded(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    cls, init, apply = MODEL_REGISTRY.resolve(name)
+    fields = {f.name for f in dataclasses.fields(cls)}
+    model_cfg = cls(**{k: getattr(cfg, k) for k in (
+        "feature_maps", "query_maps", "train_rounds", "test_rounds")
+        if k in fields})
+    params = init(seeded(params_seed), model_cfg)
+
+    def rounds(training):
+        if "rounds" in fields:
+            return model_cfg.rounds
+        return model_cfg.train_rounds if training else model_cfg.test_rounds
+
+    def noise_of(n):
+        noise_rows = {"query_sat_lit": batch.V, "attention_sat": 2 * batch.V}
+        if name not in noise_rows:
+            return {}
+        return {"round_noise": torch.randn(
+            (n, noise_rows[name], 4), generator=seeded(noise_seed),
+            device=dev, dtype=torch.float32)}
+
+    def forward(plans, n):
+        return apply(params, model_cfg, batch, None, training=False,
+                     rounds=n, plans=plans, device=dev, **noise_of(n))
+
+    def grads_of(loss, leaves):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return [torch.zeros_like(t) if g is None else g
+                for g, t in zip(grads, leaves)]
+
+    def train_step(plans, n):
+        leaves = [t.detach().requires_grad_(True)
+                  for t in pytree.tree_leaves(params)]
+        tree = pytree.tree_unflatten(leaves, pytree.tree_structure(params))
+        loss = apply(tree, model_cfg, batch, None, training=True, rounds=n,
+                     plans=plans, device=dev, **noise_of(n))[1]
+        return loss.detach(), grads_of(loss, leaves)
+
+    def train_step_f64(n):
+        noise = {k: v.double() for k, v in noise_of(n).items()}
+        p64 = pytree.tree_map(lambda t: t.double(), params)
+        b64 = dataclasses.replace(batch, **{
+            f.name: getattr(batch, f.name).double()
+            for f in dataclasses.fields(batch)
+            if isinstance(getattr(batch, f.name), torch.Tensor) and
+            getattr(batch, f.name).is_floating_point()})
+        leaves = pytree.tree_leaves(p64)
+        for t in leaves:
+            t.requires_grad_(True)
+        f32acc = mlp_module.linear_f32acc
+        mlp_module.linear_f32acc = torch.matmul  # products in float64 too
+        torch.set_default_dtype(torch.float64)
+        try:
+            loss = apply(p64, model_cfg, b64, None, training=True, rounds=n,
+                         device=dev, **noise)[1]
+            return grads_of(loss, leaves)
+        finally:
+            torch.set_default_dtype(torch.float32)
+            mlp_module.linear_f32acc = f32acc
+
+    return types.SimpleNamespace(name=name, cfg=model_cfg, params=params,
+                                 rounds=rounds, forward=forward,
+                                 train_step=train_step,
+                                 train_step_f64=train_step_f64)
+
+
+@contextlib.contextmanager
+def sequential_segment_sums():
+    """The plain path's segment sums in row order on the card too (one
+    pass of `torch.segment_reduce`, as on the CPU), instead of blocks of
+    `graph_ops.BLOCK_ROWS` rows first: the literal-clause sums then add
+    each segment's terms in the order the kernel's plans do."""
+    from diffusionsat_torch.ops import graph_ops
+
+    blocked = graph_ops._sorted_sum
+    graph_ops._sorted_sum = functools.partial(blocked, blocked=False)
+    try:
+        yield
+    finally:
+        graph_ops._sorted_sum = blocked
+
+
+def _dropping(plan, every: int):
+    """`plan` without every `every`-th real edge (a plan built wrong)."""
+    import torch
+
+    E, M = int(plan.row_ptr[-1]), plan.num_segments
+    keep = torch.ones(E, dtype=torch.bool, device=plan.gather.device)
+    keep[::every] = False
+    seg = torch.repeat_interleave(
+        torch.arange(M, device=keep.device), plan.row_ptr.diff().long(),
+        output_size=E)
+    row_ptr = torch.zeros(M + 1, dtype=torch.int32, device=keep.device)
+    row_ptr[1:] = torch.cumsum(torch.bincount(seg[keep], minlength=M), 0)
+    return dataclasses.replace(plan, row_ptr=row_ptr,
+                               gather=plan.gather[:E][keep].contiguous())
+
+
+@contextlib.contextmanager
+def planted_fault(kind: str):
+    """A fault planted in the planned sums' backward, for the gradient
+    gate to see: "scale_1e-2" scales every planned backward by 1 + 1e-2;
+    "drop_1000" / "drop_100" run it over plans that lost every 1000th /
+    100th real edge. The forward stays sound."""
+    from diffusionsat_torch.ops import segsum
+
+    fn = segsum._PlannedSpMM
+    sound = fn.__dict__["backward"]
+    dropped: dict = {}
+
+    def backward(ctx, grad):
+        if kind == "scale_1e-2":
+            gx, a, b = sound.__func__(ctx, grad)
+            return gx * (1 + 1e-2), a, b
+        every = int(kind.split("_")[1])
+        key = id(ctx.bwd)
+        if key not in dropped:
+            dropped[key] = (ctx.bwd, _dropping(ctx.bwd, every))
+        grad = grad.contiguous()
+        return fn.apply(grad, dropped[key][1], ctx.fwd), None, None
+
+    fn.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        fn.backward = sound
 
 
 T0 = time.perf_counter()
@@ -1611,16 +1873,314 @@ def main_phase(dev, data_dir: Path, tools: dict, eval_batches) -> dict:
                                  for d in segsum.CNF_DIRECTIONS}}
 
 
+def models_phase(dev, data_dir: Path, tools: dict) -> dict:
+    """Phase 11: the other model family at `main`'s widths on the 20 000-node
+    threshold batch. For each model: the kernel path against the kernel's
+    plain version at full depth and against the unplanned path at 4 rounds
+    (test-mode logits and loss, one training step's loss and parameter
+    gradients, the gradients with both paths' segment sums in the plans'
+    order), the launches of a forward and of a step against the count
+    reckoned from the code, the wall, busy time and peak memory of a step,
+    then `python -m diffusionsat_torch.main --model <name>` in-process on
+    phase 10's split (4 steps and `--evaluate`: a finite loss, launches as
+    reckoned). Returns the launch counts and the kernel rows of the
+    batch's four plans."""
+    import numpy as np
+    import torch
+
+    from diffusionsat_torch import main as generic
+    from diffusionsat_torch.config import parse_config
+    from diffusionsat_torch.data.bench_workloads import threshold_3sat_batch
+    from diffusionsat_torch.data.datasets import SatDataset
+    from diffusionsat_torch.graph.batch import BucketSpec
+    from diffusionsat_torch.ops import segsum
+
+    sync = tools["sync"]
+    t_phase = time.perf_counter()
+
+    def seeded(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    def counted(fn):
+        segsum.reset_launch_counts()
+        out = fn()
+        sync()
+        return out, {k: v for k, v in segsum.LAUNCHES.items() if v}
+
+    def rel_err(a, b):
+        return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+    # -- the 20k batch and phase 10's split --------------------------------
+    batch, _ = threshold_3sat_batch(np.random.default_rng(0), 20000)
+    plans = segsum.build_batch_plans(batch, edges=True).to(dev)
+    batch = batch.to(dev)
+    run_root = data_dir / "models_runs"
+    shutil.rmtree(run_root, ignore_errors=True)
+    argv = ["--task", "3-sat", "--train_size", str(MAIN_TRAIN_SIZE),
+            "--test_size", str(MAIN_TEST_SIZE), "--eval_every", "1000",
+            "--ckpt_every", "1000", "--data_dir", str(data_dir),
+            "--train_dir", str(run_root)]
+    cfg = parse_config(argv)
+    t0 = time.perf_counter()
+    n_test = len(SatDataset(
+        generic.build_instances(cfg),
+        BucketSpec.for_node_budget(cfg.max_nodes_per_batch),
+        cache_dir=data_dir, name=f"3-sat_{cfg.min_vars}_{cfg.max_vars}_"
+                                 f"{cfg.train_size}", seed=cfg.seed,
+        gen_workers=cfg.gen_workers or None).test_data().batches)
+    emit(phase="models_split", seconds=time.perf_counter() - t0,
+         test_batches=n_test, vars=batch.V, clauses=batch.C,
+         edges=plans.lit_to_clause.gather.shape[0])
+
+    launches_main: dict[str, dict] = {}
+    rows: dict[str, dict] = {}
+    for name in OTHER_MODELS:
+        t_model = time.perf_counter()
+        m = other_model(name, cfg, batch, dev)
+
+        # (a1) full depth: the kernel against its plain version
+        rf, rt = m.rounds(False), m.rounds(True)
+        fwd_k, fwd_launched = counted(lambda: m.forward(plans, rf))
+        with plain_version():
+            fwd_p = m.forward(plans, rf)
+        (loss_k, grads_k), step_launched = counted(
+            lambda: m.train_step(plans, rt))
+        with plain_version():
+            loss_p, grads_p = m.train_step(plans, rt)
+        sync()
+        torch.testing.assert_close(fwd_k[0], fwd_p[0],
+                                   **OTHER_MODELS_SAME_ORDER_TOL)
+        torch.testing.assert_close(fwd_k[1], fwd_p[1],
+                                   **OTHER_MODELS_SAME_ORDER_TOL)
+        torch.testing.assert_close(loss_k, loss_p,
+                                   **OTHER_MODELS_SAME_ORDER_TOL)
+        same_order_grad = grads_err(grads_k, grads_p)
+        if int(fwd_k[2]) != int(fwd_p[2]) or \
+                same_order_grad > OTHER_MODELS_SAME_ORDER_GRAD_TOL:
+            raise RuntimeError(f"{name}: steps {int(fwd_k[2])} / "
+                               f"{int(fwd_p[2])}, gradient error "
+                               f"{same_order_grad}")
+        # (b) the launches of one forward and one step, as reckoned
+        if fwd_launched != model_launches(name, rf, False) or \
+                step_launched != model_launches(name, rt, True):
+            raise RuntimeError(
+                f"{name}: launches {fwd_launched} / {step_launched}, "
+                f"reckoned {model_launches(name, rf, False)} / "
+                f"{model_launches(name, rt, True)}")
+
+        # (a2) 4 rounds: the kernel against the unplanned path, each in its
+        # own order (logits and loss) and both in the plans' order
+        # (gradients)
+        short = OTHER_MODELS_SHORT_ROUNDS
+        s_k, s_p = (m.forward(p, short) for p in (plans, None))
+        (sl_k, sg_k), (sl_p, sg_p) = (m.train_step(p, short)
+                                      for p in (plans, None))
+        with sequential_segment_sums():
+            og_k, og_p = (m.train_step(p, short)[1] for p in (plans, None))
+        short_logits = rel_err(s_k[0], s_p[0])
+        short_loss = abs(float(s_k[1]) / float(s_p[1]) - 1)
+        short_train_loss = abs(float(sl_k) / float(sl_p) - 1)
+        short_grad = grads_err(sg_k, sg_p)
+        ordered_grad = grads_err(og_k, og_p)
+        if short_logits > OTHER_MODELS_LOGIT_SHARE or \
+                max(short_loss, short_train_loss) > OTHER_MODELS_LOSS_RTOL \
+                or ordered_grad > OTHER_MODELS_ORDERED_GRAD_TOL:
+            raise RuntimeError(
+                f"{name} at {short} rounds, kernel against unplanned: "
+                f"logits {short_logits}, loss {short_loss} / "
+                f"{short_train_loss}, gradients {short_grad}, in the "
+                f"plans' order {ordered_grad}")
+
+        # a step's wall, busy time and peak memory
+        walls = []
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            m.train_step(plans, rt)
+            sync()
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev)
+        with tools["profile"](activities=tools["activities"]) as prof:
+            m.train_step(plans, rt)
+            sync()
+        busy = sum(tools["dev_us"](e) for e in tools["cuda_kernels"](prof))
+        emit(phase="model_kernel_vs_plain", model=name,
+             test_rounds=rf, train_rounds=rt,
+             max_abs_err_logits=(fwd_k[0] - fwd_p[0]).abs().max().item(),
+             loss_kernel=float(fwd_k[1]), loss_plain=float(fwd_p[1]),
+             train_loss=float(loss_k), grad_err_same_order=same_order_grad,
+             short_rounds=short, short_logit_share=short_logits,
+             short_loss_rel=short_loss, short_train_loss_rel=short_train_loss,
+             short_grad_err=short_grad, short_grad_err_ordered=ordered_grad,
+             steps=int(fwd_k[2]),
+             solved=bool(fwd_k[3]["solved"]),
+             launches_forward=fwd_launched, launches_step=step_launched,
+             step_wall_ms=min(walls) * 1e3,
+             step_walls_ms=[w * 1e3 for w in walls],
+             step_busy_ms=busy / 1e3, peak_gib=peak / 2 ** 30)
+
+        # (c) main --model <name>: a few steps, then --evaluate
+        res, main_launched = counted(lambda: generic.main(
+            argv + ["--model", name, "--train_steps",
+                    str(OTHER_MODELS_STEPS), "--evaluate"]))
+        reckoned = {}
+        for d, n in model_launches(name, rt, True).items():
+            reckoned[d] = reckoned.get(d, 0) + OTHER_MODELS_STEPS * n
+        for d, n in model_launches(name, rf, False).items():
+            reckoned[d] = reckoned.get(d, 0) + n_test * n
+        run_dir = Path(res["run_dir"])
+        losses = [r["loss"] for r in (json.loads(x) for x in (
+            run_dir / "train_log.jsonl").read_text().splitlines())
+            if "loss" in r]
+        if main_launched != reckoned or not losses or \
+                not np.isfinite(losses).all() or \
+                res["state"].step != OTHER_MODELS_STEPS:
+            raise RuntimeError(f"main --model {name}: launches "
+                               f"{main_launched} (reckoned {reckoned}), "
+                               f"losses {losses}")
+        launches_main[name] = main_launched
+        emit(phase="model_main", model=name, launches=main_launched,
+             losses=losses, evaluate=res["evaluate"],
+             train_seconds=res["seconds"]["train"],
+             wall_ms_per_step=res["seconds"]["train"] /
+             OTHER_MODELS_STEPS * 1e3,
+             evaluate_seconds=res["seconds"]["evaluate"],
+             seconds=time.perf_counter() - t_model)
+
+    # -- the kernel on every plan of the 20k batch, the edge plans new ------
+    gen = seeded(0)
+    for plan in (plans.lit_to_clause, plans.clause_to_lit, plans.edge_to_lit,
+                 plans.lit_to_edge):
+        row, shape = tools["kernel_row"](plan, cfg.feature_maps, gen)
+        emit(phase="kernel_vs_plain", batch="threshold3sat_20k",
+             direction=plan.name, **shape, **row)
+        rows[plan.name] = row
+    shutil.rmtree(run_root)
+    seconds = time.perf_counter() - t_phase
+    emit(phase="models_phase", seconds=seconds)
+    total: dict[str, int] = {}
+    for counts in launches_main.values():
+        for d, n in counts.items():
+            total[d] = total.get(d, 0) + n
+    return {"rows": rows, "seconds": seconds, "launches_main": total,
+            "launches_by_model": launches_main}
+
+
+def grad_gate_study(dev) -> dict:
+    """`--grad-gate-study`: phase 11's 4-round gradient check read on
+    GATE_STUDY_BATCHES 20 000-node batches x GATE_STUDY_SEEDS params and
+    noise seeds for each model, sound and with each fault of
+    GATE_STUDY_FAULTS planted in the planned sums' backward. Each case
+    prints two gates' readings:
+
+    - against float64: the distance (`grads_err`) from the unplanned
+      path's float64 gradients of the kernel path, of the unplanned f32
+      path (blocked segment sums, as the card runs it by default) and of
+      that path in the plans' order (`sequential_segment_sums`), with the
+      ratio kernel (or fault) over unplanned;
+    - order-matched, the gate phase 11 applies: the kernel path (or the
+      fault) against the unplanned path, both with every segment sum in
+      row order.
+
+    Returns the largest sound reading and, per fault, the smallest of
+    each gate."""
+    import numpy as np
+
+    from diffusionsat_torch.config import parse_config
+    from diffusionsat_torch.data.bench_workloads import threshold_3sat_batch
+    from diffusionsat_torch.ops import segsum
+
+    cfg = parse_config(["--task", "3-sat"])
+    short = OTHER_MODELS_SHORT_ROUNDS
+    ratios, ordered = [], []
+    fault_ratios = {f: [] for f in GATE_STUDY_FAULTS}
+    fault_ordered = {f: [] for f in GATE_STUDY_FAULTS}
+    for b in range(GATE_STUDY_BATCHES):
+        batch, _ = threshold_3sat_batch(np.random.default_rng(b), 20000)
+        plans = segsum.build_batch_plans(batch, edges=True).to(dev)
+        batch = batch.to(dev)
+        for name in OTHER_MODELS:
+            for seed in range(GATE_STUDY_SEEDS):
+                m = other_model(name, cfg, batch, dev, params_seed=seed,
+                                noise_seed=seed + 1)
+                g64 = m.train_step_f64(short)
+
+                def dist(grads):
+                    return grads_err([g.double() for g in grads], g64)
+
+                kernel = m.train_step(plans, short)[1]
+                unplanned = m.train_step(None, short)[1]
+                with sequential_segment_sums():
+                    kernel_o = m.train_step(plans, short)[1]
+                    unplanned_o = m.train_step(None, short)[1]
+                f64_faults, ordered_faults = {}, {}
+                for f in GATE_STUDY_FAULTS:
+                    with planted_fault(f):
+                        f64_faults[f] = dist(m.train_step(plans, short)[1])
+                        with sequential_segment_sums():
+                            ordered_faults[f] = grads_err(
+                                m.train_step(plans, short)[1], unplanned_o)
+                base = dist(unplanned)
+                ratio = dist(kernel) / base
+                ratios.append(ratio)
+                ordered.append(grads_err(kernel_o, unplanned_o))
+                for f in GATE_STUDY_FAULTS:
+                    fault_ratios[f].append(f64_faults[f] / base)
+                    fault_ordered[f].append(ordered_faults[f])
+                emit(phase="grad_gate_case", batch=b, model=name, seed=seed,
+                     kernel=dist(kernel), unplanned=base,
+                     unplanned_in_plan_order=dist(unplanned_o),
+                     ratio=ratio, faults=f64_faults,
+                     fault_ratios={f: d / base
+                                   for f, d in f64_faults.items()},
+                     ordered=ordered[-1], faults_ordered=ordered_faults)
+    out = dict(cases=len(ratios), largest_sound_ratio=max(ratios),
+               sound_ratios=sorted(ratios),
+               smallest_fault_ratio={f: min(r)
+                                     for f, r in fault_ratios.items()},
+               largest_sound_ordered=max(ordered),
+               smallest_fault_ordered={f: min(r)
+                                       for f, r in fault_ordered.items()},
+               ordered_tol=OTHER_MODELS_ORDERED_GRAD_TOL)
+    emit(phase="grad_gate_study", **out)
+    return out
+
+
+EDGE_DIRECTIONS = ("edge_to_lit", "lit_to_edge")
+
+
+def models_kernel_rows(models: dict) -> list[dict]:
+    """The kernels line's rows of phase 11: each direction at the 20k
+    batch's shapes, F = 128, with its launches summed over the models'
+    `main` runs."""
+    return [dict(name=f"gather_segsum:{d}", route="cuda",
+                 source=KERNEL_SOURCE, replaces=REPLACES,
+                 launches=models["launches_main"].get(d, 0),
+                 max_abs_err=r["max_abs_err"], ms=r["ms"],
+                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                 bound_by=r["bound_by"], library_ms=r["library_ms"],
+                 shapes="threshold3sat_20k, F=128",
+                 launches_by_model={m: n.get(d, 0) for m, n in
+                                    models["launches_by_model"].items()})
+            for d, r in models["rows"].items()]
+
+
 def main(argv: list[str]) -> int:
     import torch
 
-    if argv not in ([], ["--only-anf"], ["--only-graphs"], ["--only-main"]):
+    if argv not in ([], ["--only-anf"], ["--only-graphs"], ["--only-main"],
+                    ["--only-models"], ["--grad-gate-study"]):
         print("usage: chip_smoke.py [--only-anf | --only-graphs | "
-              "--only-main]", file=sys.stderr)
+              "--only-main | --only-models | --grad-gate-study]",
+              file=sys.stderr)
         return 2
     only_anf = argv == ["--only-anf"]
     only_graphs = argv == ["--only-graphs"]
     only_main = argv == ["--only-main"]
+    only_models = argv == ["--only-models"]
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1741,7 +2301,10 @@ def main(argv: list[str]) -> int:
         sync()
         torch.testing.assert_close(got, want, **KERNEL_TOL)
         err = (got - want).abs().max().item()
-        M, E = plan.num_segments, plan.gather.shape[0]
+        # the real edges (a padded plan's tail is never read) and the
+        # distinct rows of x they gather
+        M, E = plan.num_segments, int(plan.row_ptr[-1])
+        N = int(torch.unique(plan.gather[:E]).numel())
         seg = torch.repeat_interleave(
             torch.arange(M, device=dev, dtype=torch.int32),
             plan.row_ptr.diff(), output_size=E)
@@ -1760,9 +2323,8 @@ def main(argv: list[str]) -> int:
         sparse = torch.sparse.mm(csr, x)
         torch.testing.assert_close(sparse, want, **KERNEL_TOL)
 
-        # each input read once (x, row_ptr, gather), the output written
-        # once; E * F additions
-        N = plan.num_sources
+        # each input read once (the N rows of x the plan gathers, row_ptr,
+        # the E gather entries), the output written once; E * F additions
         nbytes = N * F * 4 + M * F * 4 + E * 4 + (M + 1) * 4
         ops = E * F
         bound_s = max(nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S)
@@ -1775,7 +2337,8 @@ def main(argv: list[str]) -> int:
             bound_by=("bytes" if nbytes / H100_BYTES_PER_S >=
                       ops / H100_F32_OPS_PER_S else "operations"),
             max_abs_err=err)
-        return row, dict(segments=M, edges=E, sources=N, F=F, bytes=nbytes)
+        return row, dict(segments=M, edges=E, sources=plan.num_sources,
+                         rows_read=N, F=F, bytes=nbytes)
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1826,6 +2389,20 @@ def main(argv: list[str]) -> int:
     if only_anf:
         anf = anf_phase(dev, data_dir, tools)
         print(json.dumps({"kernels": anf["kernels"]}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if argv == ["--grad-gate-study"]:
+        grad_gate_study(dev)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if only_models:
+        models = models_phase(dev, data_dir, tools)
+        print(json.dumps({"kernels": models_kernel_rows(models)}),
+              flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -2572,7 +3149,7 @@ def main(argv: list[str]) -> int:
     anf = anf_phase(dev, data_dir, tools)
     graphs_phase(dev, data_dir, tools)
     generic = main_phase(dev, data_dir, tools, eval_batches)
-
+    models = models_phase(dev, data_dir, tools)
 
     # one row per kernel: times at the sampler's shapes, launches of the
     # sampler run; the solving eval's and the training paths' launches and
@@ -2596,9 +3173,14 @@ def main(argv: list[str]) -> int:
                     launches_main_restore=generic[
                         "launches_main_restore"][d],
                     launches_harness=generic["launches_harness"][d],
-                    main_shapes=generic["rows"][d])
+                    main_shapes=generic["rows"][d],
+                    launches_models=models["launches_main"].get(d, 0),
+                    models_shapes=models["rows"][d])
                for d, r in kernel_rows["primes_3599_x15"].items()]
-    print(json.dumps({"kernels": kernels + anf["kernels"]}), flush=True)
+    edge_rows = [row for row in models_kernel_rows(models)
+                 if row["name"].split(":")[1] in EDGE_DIRECTIONS]
+    print(json.dumps({"kernels": kernels + anf["kernels"] + edge_rows}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

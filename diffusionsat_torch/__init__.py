@@ -11,9 +11,12 @@ Ported so far: the reverse-diffusion sampler (flat and dense chains), the
 solving eval, training (AdaBelief, the train steps of both layouts,
 checkpoints and the ``diffusion_training`` script), the uniformity battery
 and the bank measurement, the ANF path (``anf_eval``, ``anf_training``),
-many steps per dispatch as CUDA graphs (``cuda_graphs``, ``--mega_steps``)
-and the bench (``bench``). The flat layout's segment sums, forward and
-backward, run on a CUDA kernel (``csrc/segsum.cu``).
+many steps per dispatch as CUDA graphs (``cuda_graphs``, ``--mega_steps``),
+the bench (``bench``), the generic driver ``main`` with its registry and
+harness, and every model of the registry (QuerySAT, ANFSAT, NeuroSAT,
+NeuroCore, SimpleNeuroSAT, QuerySATLit, AttentionSAT). The flat layout's
+segment sums, forward and backward, run on a CUDA kernel
+(``csrc/segsum.cu``).
 """
 
 __version__ = "0.1.0"

@@ -5,8 +5,10 @@ and defaults, built from argparse, plus `--device` (the port runs on the
 card unless asked for the CPU) and `--gen_workers` (processes that
 generate a missing data split). `--model`, `--task` and
 `--sat_solver_for_generators` take the names of the registries
-(`registry.py`), as there; a registered model that the port does not have
-yet raises when it is resolved, naming the ROADMAP item that ports it.
+(`registry.py`), as there. The training script (`diffusion_training`)
+reads `--model` only to name the run directory, and trains QuerySAT
+whatever it names, as the TPU package's does; `main` trains the model it
+names.
 """
 
 from __future__ import annotations

@@ -54,6 +54,7 @@ from diffusionsat_torch.train.loop import (
     make_train_step_for,
     plan_batches,
     train,
+    uses_edge_plans,
 )
 from diffusionsat_torch.train.metrics import SATAccuracy, StepStatistics
 
@@ -132,6 +133,7 @@ def main(argv=None, *, round_gen_rounds=ROUND_GEN_ROUNDS,
         torch.autograd.set_detect_anomaly(True)
 
     model_cfg_cls, model_init, model_apply = MODEL_REGISTRY.resolve(cfg.model)
+    edges = uses_edge_plans(model_apply)
     field_names = {f.name for f in dataclasses.fields(model_cfg_cls)}
     model_cfg = model_cfg_cls(**{
         k: getattr(cfg, k) for k in ("feature_maps", "query_maps",
@@ -171,7 +173,7 @@ def main(argv=None, *, round_gen_rounds=ROUND_GEN_ROUNDS,
     t0 = time.perf_counter()
     if cfg.train_steps > state.step:
         # every training batch on the device once, with its plans
-        planned = plan_batches(dataset.train_data().batches, dev)
+        planned = plan_batches(dataset.train_data().batches, dev, edges)
         plans_of = {id(b): p for b, p in planned}
         step = make_train_step_for(model_apply, model_cfg, optimizer, dev)
 
@@ -179,7 +181,7 @@ def main(argv=None, *, round_gen_rounds=ROUND_GEN_ROUNDS,
             return step(st, batch, plans_of[id(batch)])
 
         stream = PackedBatches([b for b, _ in planned], seed=cfg.seed)
-        eval_batches = plan_batches(list(test_data)[:8], dev)
+        eval_batches = plan_batches(list(test_data)[:8], dev, edges)
         state = train(
             state, train_step, stream.repeat_shuffled(),
             steps=cfg.train_steps - state.step,
@@ -202,7 +204,7 @@ def main(argv=None, *, round_gen_rounds=ROUND_GEN_ROUNDS,
 
     if flags["evaluate"]:
         vals = run_mode("evaluate", lambda: evaluate_metrics(
-            state.params, model_cfg, plan_batches(test_data, dev),
+            state.params, model_cfg, plan_batches(test_data, dev, edges),
             [SATAccuracy(), StepStatistics()], seeded(7),
             apply_fn=model_apply, device=dev))
         print(f"[evaluate] {vals}", flush=True)

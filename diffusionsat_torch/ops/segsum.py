@@ -21,7 +21,16 @@ segmented sum over a CSR plan, one warp per output row, no atomics.
   launched through the same kernel (and counted in `LAUNCHES` under the
   direction it launches). Given a `TiledIncidence` (ops/tiled_ops.py)
   instead of `BatchPlans`, they run the tiled pair, so one `plans=`
-  argument serves both layouts.
+  argument serves both layouts. The backward goes through the same
+  autograd Function, so the pair is twice differentiable on the card too.
+- `aggregations`: the pair a model calls, planned or plain as it was
+  handed plans or not.
+- `plan_edge_to_lit`: the sum of per-edge rows (clause-ordered, one row
+  per incidence edge) into their literals, as graph attention weights
+  them; its backward, `lit_to_edge`, hands each edge its literal's row.
+  `BatchPlans` carries both plans beside the pair when they were asked
+  for (`build_batch_plans(..., edges=True)`), counted under their own
+  names.
 - `build_anf_plans` and `plan_node_to_clause` / `plan_clause_to_node` /
   `plan_and_to_var`: the same kernel over an ANF batch's membership edges
   (clauses x the 1 + V + A value nodes) and over the scatter of the AND
@@ -47,7 +56,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from diffusionsat_torch.ops.graph_ops import gather_rows
+from diffusionsat_torch.ops.graph_ops import (
+    clause_to_lit,
+    gather_rows,
+    lit_to_clause,
+)
 from diffusionsat_torch.ops.tiled_ops import (
     TiledIncidence,
     tiled_clause_to_lit,
@@ -63,6 +76,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # plan directions: the CNF literal-clause pair, and the ANF membership pair
 # with the AND -> operand-variable scatter and its transpose
 CNF_DIRECTIONS = ("lit_to_clause", "clause_to_lit")
+EDGE_DIRECTIONS = ("edge_to_lit", "lit_to_edge")
 ANF_DIRECTIONS = ("node_to_clause", "clause_to_node", "and_to_var",
                   "var_to_and")
 
@@ -198,29 +212,50 @@ def build_segsum_plan(name: str, seg_ids: np.ndarray, src_ids: np.ndarray,
 
 @dataclasses.dataclass
 class BatchPlans:
-    """The two directions of one batch's literal-clause incidence."""
+    """The two directions of one batch's literal-clause incidence, and the
+    sum of per-edge rows into literals with its transpose."""
     lit_to_clause: SegsumPlan   # segments: C clauses, sources: 2V literals
     clause_to_lit: SegsumPlan   # segments: 2V literals, sources: C clauses
+    # segments: 2V literals, sources: E edges; and its transpose. Set by
+    # `build_batch_plans(..., edges=True)`, else left out
+    edge_to_lit: SegsumPlan | None = None
+    lit_to_edge: SegsumPlan | None = None
 
     def to(self, device: str | torch.device) -> "BatchPlans":
-        return BatchPlans(self.lit_to_clause.to(device),
-                          self.clause_to_lit.to(device))
+        return BatchPlans(*(None if p is None else p.to(device) for p in (
+            getattr(self, f.name) for f in dataclasses.fields(self))))
 
 
-def build_batch_plans(batch, pad: bool = False) -> BatchPlans:
-    """Build both CSR plans of a SatBatch on the host (CPU tensors); with
-    `pad`, each padded to the batch's edge capacity."""
+def build_batch_plans(batch, pad: bool = False,
+                      edges: bool = False) -> BatchPlans:
+    """Build the CSR plans of a SatBatch on the host (CPU tensors); with
+    `pad`, each padded to the batch's edge capacity; with `edges`, the edge
+    plans too (only graph attention reads them).
+
+    The edge plans read edge rows in the clause-sorted order: `edge_to_lit`
+    walks each literal's edges in the literal-sorted order (`edge_perm_l`
+    maps them to their clause-sorted rows), and `lit_to_edge` gives every
+    real edge a segment of its own holding its literal."""
     a = lambda t: t.detach().cpu().numpy()  # noqa: E731
-    V2, C = 2 * batch.V, batch.C
-    c = build_segsum_plan("lit_to_clause", a(batch.edge_clause_c),
-                          a(batch.edge_lit_c), a(batch.edge_mask_c),
-                          num_segments=C, num_sources=V2)
-    lit = build_segsum_plan("clause_to_lit", a(batch.edge_lit_l),
-                            a(batch.edge_clause_l), a(batch.edge_mask_l),
-                            num_segments=V2, num_sources=C)
+    V2, C, E = 2 * batch.V, batch.C, batch.E
+    plans = [build_segsum_plan("lit_to_clause", a(batch.edge_clause_c),
+                               a(batch.edge_lit_c), a(batch.edge_mask_c),
+                               num_segments=C, num_sources=V2),
+             build_segsum_plan("clause_to_lit", a(batch.edge_lit_l),
+                               a(batch.edge_clause_l), a(batch.edge_mask_l),
+                               num_segments=V2, num_sources=C)]
+    if edges:
+        plans += [build_segsum_plan("edge_to_lit", a(batch.edge_lit_l),
+                                    a(batch.edge_perm_l),
+                                    a(batch.edge_mask_l), num_segments=V2,
+                                    num_sources=E),
+                  build_segsum_plan("lit_to_edge", np.arange(E),
+                                    a(batch.edge_lit_c),
+                                    a(batch.edge_mask_c), num_segments=E,
+                                    num_sources=V2)]
     if pad:
-        c, lit = c.padded(batch.E), lit.padded(batch.E)
-    return BatchPlans(lit_to_clause=c, clause_to_lit=lit)
+        plans = [p.padded(E) for p in plans]
+    return BatchPlans(*plans)
 
 
 @dataclasses.dataclass
@@ -349,11 +384,14 @@ def gather_segsum(x: torch.Tensor, plan: SegsumPlan) -> torch.Tensor:
 
 
 class _PlannedSpMM(torch.autograd.Function):
-    """One planned direction; the backward is the other direction."""
+    """One planned direction; the backward is the other direction, applied
+    through this Function again, so that a gradient of the gradient (a
+    backward with `create_graph=True`) runs the kernel too and carries its
+    autograd history."""
 
     @staticmethod
     def forward(ctx, x, fwd: SegsumPlan, bwd: SegsumPlan):
-        ctx.bwd = bwd
+        ctx.fwd, ctx.bwd = fwd, bwd
         return gather_segsum(x, fwd)
 
     @staticmethod
@@ -364,7 +402,7 @@ class _PlannedSpMM(torch.autograd.Function):
         # reads rows of any stride but needs unit column stride
         if grad.shape[1] > 0 and grad.stride(1) != 1:
             grad = grad.contiguous()
-        return gather_segsum(grad, ctx.bwd), None, None
+        return _PlannedSpMM.apply(grad, ctx.bwd, ctx.fwd), None, None
 
 
 def plan_lit_to_clause(x: torch.Tensor,
@@ -383,6 +421,26 @@ def plan_clause_to_lit(x: torch.Tensor,
     if isinstance(plans, TiledIncidence):
         return tiled_clause_to_lit(x, plans)
     return _PlannedSpMM.apply(x, plans.clause_to_lit, plans.lit_to_clause)
+
+
+def aggregations(batch, plans: BatchPlans | TiledIncidence | None):
+    """(lit->clause, clause->lit) sums of `batch`: the planned pair with
+    `plans`, else the plain gather and segment sums of `ops/graph_ops.py`."""
+    if plans is not None:
+        return (lambda x: plan_lit_to_clause(x, plans),
+                lambda x: plan_clause_to_lit(x, plans))
+    return (lambda x: lit_to_clause(batch, x),
+            lambda x: clause_to_lit(batch, x))
+
+
+def plan_edge_to_lit(x: torch.Tensor, plans: BatchPlans) -> torch.Tensor:
+    """Per-edge rows [E, F], in the clause-sorted edge order, summed into
+    their literals: [E, F] -> [2V, F] through the kernel (masked edges
+    add nothing). Its backward gives each edge its literal's row."""
+    if not isinstance(plans, BatchPlans) or plans.edge_to_lit is None:
+        raise TypeError("plan_edge_to_lit needs the edge plans of "
+                        "`build_batch_plans(..., edges=True)`")
+    return _PlannedSpMM.apply(x, plans.edge_to_lit, plans.lit_to_edge)
 
 
 def plan_node_to_clause(x: torch.Tensor, plans: ANFPlans) -> torch.Tensor:

@@ -2,18 +2,15 @@
 
 Counterpart of the TPU package's `registry.py`: the same three registries
 with the same names and aliases, each resolving lazily to the port's
-class. A model the port does not have yet is registered all the same and
-resolves to a `NotImplementedError` that names the ROADMAP item porting
-it; a name that is not registered raises `ModuleNotFoundError`, as there.
+class; a name that is not registered raises `ModuleNotFoundError`, as
+there. As there, the alias `simple_neuro_sat` resolves to NeuroCore (its
+config, init and apply), not to SimpleNeuroSAT.
 """
 
 from __future__ import annotations
 
 import importlib
 from typing import Any, Callable
-
-# the ROADMAP item that ports the models the port lacks
-UNPORTED_MODELS_ITEM = "ROADMAP Queue 1 item 4 'the other models'"
 
 
 class Registry:
@@ -44,31 +41,35 @@ def _model_entry(module: str, cfg_name: str, init_name: str, apply_name: str):
     return factory
 
 
-def _unported_model(name: str):
-    def factory():
-        raise NotImplementedError(
-            f"model {name!r} is registered but not ported yet; it waits for "
-            f"the {UNPORTED_MODELS_ITEM}")
-    return factory
-
-
 def _entry(module: str, name: str):
     def factory():
         return getattr(importlib.import_module(module), name)
     return factory
 
 
+_MODELS = "diffusionsat_torch.models"
+
 MODEL_REGISTRY = Registry("model")
-MODEL_REGISTRY.register("query_sat", _model_entry(
-    "diffusionsat_torch.models.query_sat", "QuerySATConfig", "query_sat_init",
-    "query_sat_apply"))
-MODEL_REGISTRY.register("anf_sat", _model_entry(
-    "diffusionsat_torch.models.anf_sat", "ANFSATConfig", "anf_sat_init",
-    "anf_sat_apply"))
-# the reference's spelling `simple_neuro_sat` is an alias there as well
-for _name in ("query_sat_lit", "neuro_sat", "neurocore", "simple_neurosat",
-              "attention_sat", "simple_neuro_sat"):
-    MODEL_REGISTRY.register(_name, _unported_model(_name))
+for _name, _module, _cfg, _init, _apply in (
+        ("query_sat", "query_sat", "QuerySATConfig", "query_sat_init",
+         "query_sat_apply"),
+        ("query_sat_lit", "query_sat_lit", "QuerySATLitConfig",
+         "query_sat_lit_init", "query_sat_lit_apply"),
+        ("neuro_sat", "neuro_sat", "NeuroSATConfig", "neuro_sat_init",
+         "neuro_sat_apply"),
+        ("neurocore", "neurocore", "NeuroCoreConfig", "neurocore_init",
+         "neurocore_apply"),
+        ("simple_neurosat", "neurocore", "SimpleNeuroSATConfig",
+         "simple_neurosat_init", "simple_neurosat_apply"),
+        ("attention_sat", "attention_sat", "AttentionSATConfig",
+         "attention_sat_init", "attention_sat_apply"),
+        ("anf_sat", "anf_sat", "ANFSATConfig", "anf_sat_init",
+         "anf_sat_apply"),
+        # the reference's spelling, an alias of NeuroCore there as well
+        ("simple_neuro_sat", "neurocore", "NeuroCoreConfig",
+         "neurocore_init", "neurocore_apply")):
+    MODEL_REGISTRY.register(_name, _model_entry(
+        f"{_MODELS}.{_module}", _cfg, _init, _apply))
 
 _GEN = "diffusionsat_torch.data.generators"
 _GRAPH = "diffusionsat_torch.data.graph_tasks"

@@ -81,6 +81,12 @@ def _takes_plans(apply_fn: Callable) -> bool:
     return _takes(apply_fn, "plans")
 
 
+def uses_edge_plans(apply_fn: Callable) -> bool:
+    """Whether `apply_fn` sums per-edge rows on the edge plans (graph
+    attention), so that its flat batches' plans must carry them."""
+    return getattr(apply_fn, "uses_edge_plans", False)
+
+
 def _accepts_labels(apply_fn: Callable) -> bool:
     return _takes(apply_fn, "labels")
 
@@ -133,26 +139,27 @@ def _select_labels(batch: Batch, generator: torch.Generator | None,
                                               isolation_alpha))
 
 
-def build_plans(batch: Batch, pad: bool = False
+def build_plans(batch: Batch, pad: bool = False, edges: bool = False
                 ) -> BatchPlans | ANFPlans | None:
     """The kernel plans of a flat batch, host-built: `BatchPlans` of a
-    SatBatch, `ANFPlans` of an ANFBatch; None for a dense batch. With
-    `pad`, padded to the batch's bucket, so that the plans of one bucket
-    share their shapes."""
+    SatBatch (with the edge plans if `edges`), `ANFPlans` of an ANFBatch;
+    None for a dense batch. With `pad`, padded to the batch's bucket, so
+    that the plans of one bucket share their shapes."""
     if isinstance(batch, SatBatch):
-        return build_batch_plans(batch, pad=pad)
+        return build_batch_plans(batch, pad=pad, edges=edges)
     if isinstance(batch, ANFBatch):
         return build_anf_plans(batch, pad=pad)
     return None
 
 
-def _flat_plans(batch: Batch, plans, dev: torch.device):
-    """A flat batch's plans on `dev`, built here when the caller passed
-    none; None for a dense batch."""
+def _flat_plans(batch: Batch, plans, dev: torch.device,
+                edges: bool = False):
+    """A flat batch's plans on `dev`, built here (with the edge plans if
+    `edges`) when the caller passed none; None for a dense batch."""
     if isinstance(batch, DenseSatBatch):
         return None
     if plans is None:
-        plans = build_plans(batch)
+        plans = build_plans(batch, edges=edges)
     return plans.to(dev)
 
 
@@ -182,10 +189,11 @@ def _make_step(apply_fn: Callable, cfg, optimizer, plan_kw: str | None,
     iso_alpha = float(getattr(cfg, "label_isolation_alpha", 0.0))
     if plan_kw is None and _takes_plans(apply_fn):
         plan_kw = "plans"
+    edges = uses_edge_plans(apply_fn)
 
     def train_step(state: TrainState, batch, plan=None):
         if plan_kw == "plans":
-            plan = _flat_plans(batch, plan, dev)
+            plan = _flat_plans(batch, plan, dev, edges)
         batch = batch.to(dev)
         # the label draw happens only when the batch has a bank: a step on
         # a single-label batch must not burn random numbers for it
@@ -380,10 +388,11 @@ def make_diagnostics_step(cfg, apply_fn: Callable = query_sat_apply,
     diag_cfg = dataclasses.replace(cfg, collect_round_stats=True)
     with_labels = _accepts_labels(apply_fn)
     with_plans = _takes_plans(apply_fn)
+    edges = uses_edge_plans(apply_fn)
 
     def run(params, batch, generator, plans=None) -> dict:
         if with_plans:
-            plans = _flat_plans(batch, plans, dev)
+            plans = _flat_plans(batch, plans, dev, edges)
         batch = batch.to(dev)
         kw = {"labels": batch.solutions} if with_labels else {}
         if with_plans:
@@ -456,16 +465,17 @@ def make_selfsupervised_train_step(cfg, optimizer,
 
 
 def plan_batches(batches: Iterable[Batch],
-                 device: str | torch.device = "cuda") -> list[PlannedBatch]:
+                 device: str | torch.device = "cuda",
+                 edges: bool = False) -> list[PlannedBatch]:
     """Place every batch on `device` once, each flat batch with its kernel
     plans (`BatchPlans` or `ANFPlans`, built on the host before the move and
     padded to the bucket, so that one graphed round serves every batch of a
-    bucket); dense batches get None. The pairs are what `evaluate_metrics`
-    iterates over."""
+    bucket; with the edge plans if `edges`); dense batches get None. The
+    pairs are what `evaluate_metrics` iterates over."""
     dev = resolve_device(device)
     out: list[PlannedBatch] = []
     for b in batches:
-        plans = build_plans(b, pad=True)
+        plans = build_plans(b, pad=True, edges=edges)
         out.append((b.to(dev), None if plans is None else plans.to(dev)))
     return out
 
@@ -495,6 +505,7 @@ def make_predict_step(cfg, apply_fn: Callable = query_sat_apply,
     dev = resolve_device(device)
     extra = {} if noise_scale is None else {"noise_scale": noise_scale}
     with_plans = _takes_plans(apply_fn)
+    edges = uses_edge_plans(apply_fn)
 
     @torch.no_grad()
     def predict_step(params, batch: Batch,
@@ -504,7 +515,7 @@ def make_predict_step(cfg, apply_fn: Callable = query_sat_apply,
         dense = isinstance(batch, DenseSatBatch)
         kw = dict(extra, device=dev)
         if with_plans and not dense:
-            kw["plans"] = _flat_plans(batch, plans, dev)
+            kw["plans"] = _flat_plans(batch, plans, dev, edges)
         batch = batch.to(dev)
         if draws is not None and len(draws) != prediction_tries:
             raise ValueError(f"{len(draws)} sets of draws for "

@@ -1,7 +1,7 @@
 """Evaluation metrics over flat and dense batches.
 
-Counterpart of the TPU package's `train/metrics.py` for the solving eval:
-each metric accumulates over `update_state(model_output, batch)` calls and
+Counterpart of the TPU package's `train/metrics.py`, every metric of it:
+each accumulates over `update_state(model_output, batch)` calls and
 can log to stdout or a JSON-lines file. `model_output["prediction"]` holds
 the chosen head's logits, [V] for a `SatBatch` and [G, Vg] for a
 `DenseSatBatch`.
@@ -98,6 +98,61 @@ class SATAccuracy(Metric):
 
     def reset_state(self):
         self.accs, self.solved = [], []
+
+
+class EmptyMetric(Metric):
+    """A metric that reads nothing: the eval list of a model without one."""
+
+    def update_state(self, model_output, batch):
+        pass
+
+    def get_values(self, reset_state=True):
+        return {}
+
+
+class SATAccuracySolver(Metric):
+    """Solver-backed cross-check of `SATAccuracy` on flat batches: per
+    graph, the formula is re-extracted from the batch, the rounded
+    prediction is checked against it, and its bits are compared with a
+    model the native CDCL solver finds. An independent implementation of
+    the same metric, as the TPU package keeps it."""
+
+    def __init__(self) -> None:
+        self.accs: list[float] = []
+        self.correct: list[int] = []
+
+    def update_state(self, model_output, batch):
+        from diffusionsat_torch.evaluation.harness import extract_formulas
+        from diffusionsat_torch.sat.cnf import check_assignment
+        from diffusionsat_torch.sat.solvers import solve
+
+        logits = torch.as_tensor(
+            model_output["prediction"]).detach().cpu().numpy()
+        pred_bits = (1.0 / (1.0 + np.exp(-logits)) > 0.5).astype(int)
+        off = 0
+        for n_vars, clauses in extract_formulas(batch):
+            bits = pred_bits[off:off + n_vars].tolist()
+            off += n_vars
+            self.correct.append(1 if check_assignment(clauses, bits) else 0)
+            ok, model = solve(clauses, n_vars)
+            if not ok:
+                raise ValueError("a dataset instance is unsatisfiable")
+            model_bits = [1 if lit > 0 else 0 for lit in model]
+            eq = sum(int(a == b) for a, b in zip(bits, model_bits))
+            self.accs.append(eq / max(n_vars, 1))
+
+    def get_values(self, reset_state=True):
+        out = {
+            "accuracy": float(np.mean(self.accs)) if self.accs else 0.0,
+            "total_accuracy": float(np.mean(self.correct))
+            if self.correct else 0.0,
+        }
+        if reset_state:
+            self.reset_state()
+        return out
+
+    def reset_state(self):
+        self.accs, self.correct = [], []
 
 
 class ANFAccuracy(Metric):

@@ -133,3 +133,44 @@ def jax_anf_round_noise(key, rounds, V):
     keys = jax.random.split(key, rounds)
     return torch.from_numpy(np.stack([
         np.asarray(jax.random.normal(k, (V, 4))) for k in keys]))
+
+
+# -- the other model family ------------------------------------------------
+
+WIDTHS = dict(feature_maps=16, query_maps=8, train_rounds=3, test_rounds=4,
+              rounds=3)
+MODELS = ("neuro_sat", "neurocore", "simple_neurosat", "simple_neuro_sat",
+          "query_sat_lit", "attention_sat")
+# standardize each feature over rows that start out equal: ill-conditioned
+# in f32 (tests/test_torch_models.py)
+MOMENTS_MODELS = ("neurocore", "simple_neurosat", "simple_neuro_sat")
+
+
+def model_configs(name, **kw):
+    """(TPU-package config, port config, init, apply pairs) of `name`."""
+    from diffusionsat_tpu.registry import MODEL_REGISTRY as JREG
+    from diffusionsat_torch.registry import MODEL_REGISTRY as TREG
+
+    jcls, jinit, japply = JREG.resolve(name)
+    tcls, tinit, tapply = TREG.resolve(name)
+    fields = {f.name for f in dataclasses.fields(jcls)}
+    widths = {k: v for k, v in dict(WIDTHS, **kw).items() if k in fields}
+    return jcls(**widths), tcls(**widths), (jinit, tinit), (japply, tapply)
+
+
+def replay_round_noise(name, key, rounds, V):
+    """The port's `round_noise` for the draws the TPU package's model makes
+    from `key`: normal [V, 4] (QuerySATLit) or [2V, 4] (AttentionSAT) from
+    each of `split(key, rounds)`."""
+    rows = {"query_sat_lit": V, "attention_sat": 2 * V}.get(name)
+    if rows is None:
+        return {}
+    keys = jax.random.split(key, rounds)
+    return {"round_noise": torch.from_numpy(np.stack(
+        [np.asarray(jax.random.normal(k, (rows, 4))) for k in keys]))}
+
+
+def rounds_of(cfg, training):
+    if hasattr(cfg, "rounds"):
+        return cfg.rounds
+    return cfg.train_rounds if training else cfg.test_rounds

@@ -122,10 +122,16 @@ def test_main_trains_a_registry_task(task, tmp_path):
 
 
 def test_unported_model_raises_naming_its_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tmain.main(["--model", "neuro_sat", "--device", "cpu",
-                    "--data_dir", str(tmp_path), "--train_dir",
-                    str(tmp_path)])
+    """The model once unported trains: `--model neuro_sat` trains NeuroSAT
+    (its LSTM cells and messages), not QuerySAT;
+    tests/test_torch_models_cli.py runs every model."""
+    res = tmain.main(TINY + ["--model", "neuro_sat", "--train_steps", "1",
+                             "--data_dir", str(tmp_path / "dc"),
+                             "--train_dir", str(tmp_path / "runs")])
+    assert res["state"].step == 1
+    assert set(res["state"].params) == {"L_init", "C_init", "L_update",
+                                        "C_update", "LC_msg", "CL_msg",
+                                        "L_vote"}
 
 
 def test_training_ksat_split_equals_the_tpu_package(tmp_path):

@@ -11,7 +11,6 @@ from diffusionsat_torch import registry as treg
 PAIRS = [(jreg.MODEL_REGISTRY, treg.MODEL_REGISTRY),
          (jreg.DATASET_REGISTRY, treg.DATASET_REGISTRY),
          (jreg.SOLVER_REGISTRY, treg.SOLVER_REGISTRY)]
-PORTED_MODELS = ("query_sat", "anf_sat")
 
 
 @pytest.mark.parametrize("pair", PAIRS, ids=lambda p: p[0].kind)
@@ -42,15 +41,21 @@ def test_every_solver_resolves_to_the_ports_class(name):
 
 @pytest.mark.parametrize("name", jreg.MODEL_REGISTRY.registered_names)
 def test_models_resolve_or_name_their_roadmap_item(name):
-    if name in PORTED_MODELS:
-        cfg, init, apply = treg.MODEL_REGISTRY.resolve(name)
-        jcfg, jinit, japply = jreg.MODEL_REGISTRY.resolve(name)
-        assert (cfg.__name__, init.__name__, apply.__name__) == \
-            (jcfg.__name__, jinit.__name__, japply.__name__)
-        assert apply.__module__ == _port_counterpart(japply)
-        return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        treg.MODEL_REGISTRY.resolve(name)
+    """Every model is ported: config, init and apply of the same names,
+    from the port's
+    counterpart of the TPU package's module; the alias `simple_neuro_sat`
+    resolves to NeuroCore in both, SimpleNeuroSAT's own name to its own
+    config (the same init and apply)."""
+    cfg, init, apply = treg.MODEL_REGISTRY.resolve(name)
+    jcfg, jinit, japply = jreg.MODEL_REGISTRY.resolve(name)
+    assert (cfg.__name__, init.__name__, apply.__name__) == \
+        (jcfg.__name__, jinit.__name__, japply.__name__)
+    for t, j in ((cfg, jcfg), (init, jinit), (apply, japply)):
+        assert t.__module__ == _port_counterpart(j)
+    if name == "simple_neuro_sat":
+        assert cfg.__name__ == "NeuroCoreConfig" and not cfg().use_query
+    if name == "simple_neurosat":
+        assert cfg.__name__ == "SimpleNeuroSATConfig" and cfg().use_query
 
 
 def test_unregistered_names_raise_as_there():

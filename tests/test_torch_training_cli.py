@@ -45,8 +45,7 @@ def test_defaults_equal_the_tpu_packages_field_by_field():
 
 @pytest.mark.parametrize("argv,item", [
     (["--model", "neuro_sat"], "item 4"),
-    # k-SAT (--use_hard_3sat false) and the registry's tasks are ported:
-    # the registered models the port lacks still raise, naming their item
+    # k-SAT (--use_hard_3sat false) and the registry's tasks are ported
     (["--model", "neurocore"], "item 4"),
     (["--model", "query_sat_lit"], "item 4"),
     (["--model", "attention_sat"], "item 4"),
@@ -57,10 +56,50 @@ def test_defaults_equal_the_tpu_packages_field_by_field():
     (["--label_samples", "4", "--model", "simple_neurosat"], "item 4"),
 ])
 def test_unported_options_raise_naming_their_item(argv, item, tmp_path):
+    """An unported option raises before anything is written, naming its
+    ROADMAP item. The models of Queue 1 item 4 are ported: their `--model`
+    now passes the check, as the TPU package's script takes every
+    registered name (`test_model_flag_names_the_run_and_trains_query_sat`
+    trains under each)."""
+    if item == "item 4":
+        diffusion_training._check_ported(tconfig.parse_config(argv))
+        return
     with pytest.raises(NotImplementedError, match=item):
         diffusion_training.main(argv + ["--device", "cpu", "--data_dir",
                                         str(tmp_path)])
     assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("argv", [
+    ["--model", "neuro_sat"],
+    ["--model", "neurocore"],
+    ["--model", "query_sat_lit"],
+    ["--model", "attention_sat"],
+    ["--label_samples", "4", "--model", "simple_neurosat"],
+])
+def test_model_flag_names_the_run_and_trains_query_sat(argv, tmp_path):
+    """As in the TPU package, the training script reads `--model` only to
+    name the run directory: whatever model it names, it trains QuerySAT
+    (the exported params are QuerySAT's tree)."""
+    from diffusionsat_torch.models.query_sat import QuerySATConfig
+
+    args = TINY + argv + ["--train_steps", "2", "--eval_every", "2",
+                          "--data_dir", str(tmp_path / "dc"),
+                          "--train_dir", str(tmp_path / "runs")]
+    final = diffusion_training.main(args)
+    run_dir = Path(final["run_dir"])
+    name = argv[-1]
+    assert run_dir.name.startswith(f"{name}_3-sat_")
+    # the same name as the TPU package's but for the time stamp (its
+    # config has no --device and --gen_workers)
+    jname = jconfig.parse_config(
+        [a for i, a in enumerate(args) if a not in ("--device", "cpu",
+                                                    "--gen_workers")
+         and args[i - 1] != "--gen_workers"]).run_dir().name
+    assert run_dir.name.rsplit("_", 2)[0] == jname.rsplit("_", 2)[0]
+    tree, meta = tckpt.load_params(run_dir / "params.npz")
+    assert set(tree) == set(QuerySATConfig().mlp_configs())
+    assert meta["model"] == "query_sat" and meta["step"] == 2
 
 
 def test_tiled_flat_backend_raises(monkeypatch, tmp_path, capsys):
