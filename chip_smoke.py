@@ -135,12 +135,39 @@ Phases, each of which raises (exit code 1) on failure:
    `--evaluate`: a finite loss and launches as reckoned; and the kernel on
    the batch's four plans, AttentionSAT's edge -> literal pair included.
 
+12. the TSP stack, the hyperparameter search and the ANF studies (main
+   paths): `TSPMatrixSE` with each core (DenseGNN, MatrixSE) at the
+   model's widths (64 maps, 16 rounds) on 16 Euclidean 16-node instances,
+   12 AdaBelief steps on that fixed batch from a seeded init, unsupervised
+   with the host subtour cuts and supervised: the loss must fall, the
+   trained model's logits and loss on the card must agree with the same
+   params on the CPU (for the model that takes the cuts), a step's wall,
+   busy time, host finder time and peak memory, and the optimality gap of greedy and beam-128 decoding on a
+   test batch (a reading); `python -m diffusionsat_torch.hyperopt`
+   in-process on its own data (1000 / 500 instances where the script
+   takes 5000 / 500, the 6000-node bucket), 2 TPE trials of 20 steps (a
+   study takes 20 of 2000): the launches
+   must equal the count reckoned from the code, each trial's solved
+   fraction through the kernel lie within 0.02 of its plain version's on
+   the same params and draws, and its first step's loss through the
+   kernel equal that through the plain version over the same plans; the
+   kernel at a hyperopt batch's shapes at F = 16 and 64; `python -m
+   diffusionsat_torch.anf_error_structure` with the flagship at 64 rounds
+   and the input-anchor ladder on the test batches that hold the split's
+   first 32 systems, against the JAX package's two records of those 32
+   systems (`ANF_ANCHOR_R64.json` and `ANF_ANCHOR_CPU_SUBSET.json`:
+   per-variable accuracy within 0.005 and systems solved raw and at each
+   anchor level within 2 of the span the two read), its launches as reckoned and its wall split
+   into device and host; and `python -m diffusionsat_torch.anf_prior_study`
+   on the host over 8 systems of `ANF_MARG_R17_M16.npz`, timed, its
+   conflicts beside the record's.
+
 `python3 chip_smoke.py --only-anf` builds and runs phase 8 alone,
 `--only-graphs` phase 9, `--only-main` phase 10 (after the eval split),
-and `--only-models` phase 11 (generating `main`'s split when phase 10 has
-not left it). `--grad-gate-study` builds and reads phase 11's 4-round
-gradient gate on more batches and seeds, sound and with faults planted
-(`grad_gate_study`). Inference rounds run as CUDA graphs in every
+`--only-models` phase 11 (generating `main`'s split when phase 10 has
+not left it) and `--only-studies` phase 12. `--grad-gate-study` builds
+and reads phase 11's 4-round gradient gate on more batches and seeds,
+sound and with faults planted (`grad_gate_study`). Inference rounds run as CUDA graphs in every
 phase (the launches a graph captured are credited once per replay).
 
 Every line of standard output is one JSON object, except the card line of
@@ -303,6 +330,48 @@ GATE_STUDY_BATCHES = 3
 GATE_STUDY_SEEDS = 3
 GATE_STUDY_FAULTS = ("scale_1e-2", "drop_1000", "drop_100")
 
+# phase 12: the TSP stack at the model's own widths (64 maps, 16 rounds,
+# 16-node Euclidean instances, batch 16), each core trained on one fixed
+# batch from a seeded init, unsupervised with subtour cuts and supervised
+TSP_NODES = 16
+TSP_BATCH = 16
+TSP_FEATURES = 64
+TSP_ROUNDS = 16
+TSP_STEPS = 12
+TSP_LR = 3e-3
+# the trained model on the card against the same params on the CPU: logits
+# to this share of their largest entry, losses relative
+TSP_CPU_SHARE = 1e-4
+TSP_CPU_LOSS_RTOL = 1e-4
+TSP_BEAM_WIDTH = 128
+# the hyperparameter search on its own data (500 test instances, 3-20
+# variables, the 6000-node bucket) with 1000 training instances where the
+# script takes 5000, 2 TPE trials of 20 steps where a study takes 20 of
+# 2000: data quantity and loop length only
+HYPEROPT_TRAIN_SIZE = 1000
+HYPEROPT_TRIALS = 2
+HYPEROPT_STEPS = 20
+HYPEROPT_SOLVED_TOL = 0.02
+HYPEROPT_WIDTHS = (16, 64)
+# the ANF error-structure study with the flagship, 64 rounds, the input
+# anchor ladder, on the test batches that hold the first 32 systems of the
+# split, against those systems in the JAX package's two records of the
+# study (on its TPU, and on the CPU with the same keys): the per-variable
+# accuracy within 0.005 and the systems solved raw and at each anchor
+# level within 2 of the span the two records read. The draws cannot be
+# replayed on the card, and the two records themselves differ by up to 4
+# systems a level on these 32 (PERF.md, section 6)
+ANF_STUDY_SYSTEMS = 32
+ANF_STUDY_RECORDS = (ROOT / "ANF_ANCHOR_R64.json",
+                     ROOT / "ANF_ANCHOR_CPU_SUBSET.json")
+ANF_STUDY_ACC_TOL = 0.005
+ANF_STUDY_SYSTEMS_TOL = 2
+# the input-prior study on the host: the first 8 systems of the repo's
+# marginals of the same split, beside the record's conflicts
+PRIOR_MARGINALS = ROOT / "ANF_MARG_R17_M16.npz"
+PRIOR_RECORD = ROOT / "ANF_PRIOR_R17.json"
+PRIOR_SYSTEMS = 8
+
 
 @contextlib.contextmanager
 def plain_version():
@@ -351,6 +420,17 @@ def model_launches(name: str, rounds: int, training: bool) -> dict:
             out["clause_to_lit"] -= 1
             out["lit_to_edge"] = rounds
     return out
+
+
+def hyperopt_launches(cfg, steps: int, eval_batches: int) -> dict:
+    """Kernel launches per CNF direction of a hyperopt trial's `steps`
+    train steps and its eval over `eval_batches` batches, reckoned from the
+    code: a flat QuerySAT training round launches 4 each way (2 forward:
+    the message pass and the query's clause loss, whose gradient is closed
+    form; 2 backward), an inference round 2 each way, every round of the
+    fixed-count loops."""
+    n = 4 * cfg.train_rounds * steps + 2 * cfg.test_rounds * eval_batches
+    return {d: n for d in ("lit_to_clause", "clause_to_lit")}
 
 
 def grads_err(ga, gb) -> float:
@@ -2069,6 +2149,429 @@ def models_phase(dev, data_dir: Path, tools: dict) -> dict:
             "launches_by_model": launches_main}
 
 
+def tsp_part(dev, tools) -> dict:
+    """Phase 12, TSP: each core (DenseGNN, MatrixSE) at the model's widths,
+    unsupervised with subtour cuts and supervised, trained `TSP_STEPS`
+    AdaBelief steps on one fixed batch from a seeded init: the loss must
+    fall; the trained model's logits and losses on the card against the
+    same params on the CPU; a step's wall, busy time, host finder time and
+    peak memory; the optimality gap of greedy and beam decoding on a test
+    batch (a reading: the repo holds no TSP model mark)."""
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from diffusionsat_torch.train.adabelief import adabelief
+    from diffusionsat_torch.tsp import loss as tsp_loss_module
+    from diffusionsat_torch.tsp.data import EuclideanTSP
+    from diffusionsat_torch.tsp.metrics import TSPMetrics
+    from diffusionsat_torch.tsp.model import (
+        TSPMatrixSEConfig,
+        tsp_matrix_se_apply,
+        tsp_matrix_se_init,
+    )
+
+    sync = tools["sync"]
+    data = EuclideanTSP(min_node_count=TSP_NODES, max_node_count=TSP_NODES,
+                        padded_size=TSP_NODES, train_size=TSP_BATCH,
+                        test_size=TSP_BATCH, seed=0)
+    t0 = time.perf_counter()
+    train = next(data.batches("train", TSP_BATCH))
+    test = next(data.batches("test", TSP_BATCH))
+    emit(phase="tsp_data", seconds=time.perf_counter() - t0,
+         instances=2 * TSP_BATCH, nodes=TSP_NODES)
+    host = {k: torch.from_numpy(train[k]) for k in ("adj_matrix", "labels")}
+    adj, labels = (host[k].to(dev) for k in ("adj_matrix", "labels"))
+    test_adj = torch.from_numpy(test["adj_matrix"]).to(dev)
+    test_labels = torch.from_numpy(test["labels"]).to(dev)
+
+    # the host finder's seconds (its device sync included)
+    finder = {"calls": 0, "seconds": 0.0}
+    real_pairs = tsp_loss_module.subtour_pairs
+
+    def timed_pairs(*args, **kw):
+        t = time.perf_counter()
+        out = real_pairs(*args, **kw)
+        finder["calls"] += 1
+        finder["seconds"] += time.perf_counter() - t
+        return out
+
+    tsp_loss_module.subtour_pairs = timed_pairs
+    out = {}
+    try:
+        for core in ("dense_gnn", "matrix_se"):
+            for supervised in (False, True):
+                name = f"{core}_{'supervised' if supervised else 'cuts'}"
+                cfg = TSPMatrixSEConfig(
+                    feature_maps=TSP_FEATURES, rounds=TSP_ROUNDS,
+                    use_matrix_se=core == "matrix_se",
+                    supervised=supervised, n_vertices_prior=TSP_NODES)
+                g = torch.Generator(device=dev)
+                g.manual_seed(0)
+                params = tsp_matrix_se_init(g, cfg)
+                opt = adabelief(learning_rate=TSP_LR, eps=1e-8,
+                                clip_gradients=True)
+                opt_state = opt.init(params)
+
+                def step(params, opt_state):
+                    leaves, spec = pytree.tree_flatten(params)
+                    leaves = [p.detach().requires_grad_(True)
+                              for p in leaves]
+                    _, total, _ = tsp_matrix_se_apply(
+                        pytree.tree_unflatten(leaves, spec), cfg, adj,
+                        labels, device=dev)
+                    grads = torch.autograd.grad(total, leaves,
+                                                allow_unused=True)
+                    grads = [torch.zeros_like(p) if gr is None else gr
+                             for gr, p in zip(grads, leaves)]
+                    params, opt_state = opt.update(
+                        pytree.tree_unflatten(grads, spec), opt_state,
+                        params)
+                    return params, opt_state, total.detach()
+
+                torch.cuda.reset_peak_memory_stats(dev)
+                losses, walls = [], []
+                finder.update(calls=0, seconds=0.0)
+                for _ in range(TSP_STEPS):
+                    sync()
+                    t0 = time.perf_counter()
+                    params, opt_state, loss = step(params, opt_state)
+                    losses.append(float(loss))
+                    walls.append(time.perf_counter() - t0)
+                peak = torch.cuda.max_memory_allocated(dev)
+                finder_s = finder["seconds"] / TSP_STEPS
+                finder_calls = finder["calls"] / TSP_STEPS
+                # device activity only: recording the host side of a
+                # step's 5-18 thousand small ops costs seconds
+                with tools["profile"](activities=tools["activities"][-1:]
+                                      ) as prof:
+                    step(params, opt_state)
+                    sync()
+                kernels = tools["cuda_kernels"](prof)
+                busy = sum(tools["dev_us"](e) for e in kernels) / 1e3
+                if busy <= 0:
+                    raise RuntimeError(f"tsp {name}: the profile shows no "
+                                       "device time")
+                fifth = max(1, TSP_STEPS // 5)
+                first, last = (float(np.mean(losses[:fifth])),
+                               float(np.mean(losses[-fifth:])))
+                if not np.isfinite(losses).all() or \
+                        not last < LOSS_FALL_FACTOR * first:
+                    raise RuntimeError(f"tsp {name}: losses {losses}")
+
+                # the trained params on the card and on the CPU, for each
+                # core on the model that takes the host cuts
+                share = loss_rel = None
+                t0 = time.perf_counter()
+                if not supervised:
+                    with torch.no_grad():
+                        lc, tc, _ = tsp_matrix_se_apply(params, cfg, adj,
+                                                        labels, device=dev)
+                        lh, th, _ = tsp_matrix_se_apply(
+                            pytree.tree_map(lambda t: t.cpu(), params), cfg,
+                            host["adj_matrix"], host["labels"],
+                            device="cpu")
+                    share = (lc.cpu() - lh).abs().max().item() / \
+                        lh.abs().max().item()
+                    loss_rel = abs(float(tc) / float(th) - 1)
+                    if share > TSP_CPU_SHARE or \
+                            loss_rel > TSP_CPU_LOSS_RTOL:
+                        raise RuntimeError(
+                            f"tsp {name}: card against CPU: logits "
+                            f"{share}, loss {loss_rel}")
+                cpu_seconds = time.perf_counter() - t0
+
+                # decoding the test batch: the optimality gap, a reading
+                with torch.no_grad():
+                    test_logits = tsp_matrix_se_apply(
+                        params, cfg, test_adj, test_labels, training=False,
+                        device=dev)[0][..., 0]
+                gaps = {}
+                for decoder, beam in (("greedy", False), ("beam", True)):
+                    m = TSPMetrics(beam_width=TSP_BEAM_WIDTH, use_beam=beam)
+                    t0 = time.perf_counter()
+                    m.update_state({"prediction": test_logits}, test)
+                    gaps[decoder] = dict(m.get_values(),
+                                         seconds=time.perf_counter() - t0)
+                out[name] = dict(step_wall_ms=float(np.median(walls[1:]))
+                                 * 1e3, step_busy_ms=busy,
+                                 finder_ms_per_step=finder_s * 1e3,
+                                 host_syncs_per_step=finder_calls,
+                                 peak_gib=peak / 2 ** 30)
+                emit(phase="tsp_train", model=name, steps=TSP_STEPS,
+                     losses=losses, first_fifth=first, last_fifth=last,
+                     card_vs_cpu_logit_share=share,
+                     card_vs_cpu_loss_rel=loss_rel,
+                     card_vs_cpu_seconds=cpu_seconds,
+                     step_walls_ms=[w * 1e3 for w in walls],
+                     kernels_per_step=sum(e.count for e in kernels),
+                     gaps=gaps, **out[name])
+    finally:
+        tsp_loss_module.subtour_pairs = real_pairs
+    return out
+
+
+def hyperopt_part(dev, data_dir: Path, tools: dict) -> dict:
+    """Phase 12, hyperparameter search: `python -m
+    diffusionsat_torch.hyperopt` in-process, 2 TPE trials on its own data
+    at the space's widths. Each trial, as the script runs it, is also
+    scored through the kernel's plain version on the same params and draws
+    (within 0.02); the whole run's launches must equal the count reckoned
+    from the code; and afterwards each trial's first step through the
+    kernel and through its plain version over the same plans, from the same
+    init and batch, must give the same loss. Returns the launches and the
+    kernels line's rows at the trials' shapes."""
+    import numpy as np
+    import torch
+
+    from diffusionsat_torch import cuda_graphs
+    from diffusionsat_torch import hyperopt
+    from diffusionsat_torch.ops import segsum
+
+    sync = tools["sync"]
+    t0 = time.perf_counter()
+    # generated in this process: a pool's spawned workers take longer to
+    # start than these instances take to label
+    dataset = hyperopt.build_dataset(train_size=HYPEROPT_TRAIN_SIZE,
+                                     data_dir=str(data_dir), gen_workers=1)
+    n_train = len(dataset.train_data())
+    n_test = len(dataset.test_data())
+    emit(phase="hyperopt_split", seconds=time.perf_counter() - t0,
+         train_batches=n_train, test_batches=n_test)
+
+    trials = []
+    real_run = hyperopt.run_trial
+
+    def run_trial(hp, dataset, steps, seed, device, planned):
+        train, test = planned
+        sync()
+        t0 = time.perf_counter()
+        cfg, state, losses = hyperopt.train_trial(hp, train, steps, seed,
+                                                  device)
+        sync()
+        t1 = time.perf_counter()
+        score = hyperopt.score_trial(state.params, cfg, test, device)
+        sync()
+        t2 = time.perf_counter()
+        # the same params and draws through the plain version, eager (a
+        # graph replays the launches it captured); no launch is counted
+        with plain_version(), cuda_graphs.eager():
+            plain = hyperopt.score_trial(state.params, cfg, test, device)
+        trials.append(dict(hp=hp, seed=seed, cfg=cfg, planned=planned,
+                           losses=[float(x) for x in losses], score=score,
+                           plain_score=plain, train_seconds=t1 - t0,
+                           eval_seconds=t2 - t1))
+        return score
+
+    out_file = data_dir / "hyperopt_trials.jsonl"
+    out_file.unlink(missing_ok=True)
+    hyperopt.run_trial = run_trial
+    try:
+        segsum.reset_launch_counts()
+        t0 = time.perf_counter()
+        hyperopt.main(["--trials", str(HYPEROPT_TRIALS),
+                       "--steps_per_trial", str(HYPEROPT_STEPS),
+                       "--train_size", str(HYPEROPT_TRAIN_SIZE),
+                       "--data_dir", str(data_dir), "--out", str(out_file)])
+        sync()
+        seconds = time.perf_counter() - t0
+        launched = dict(segsum.LAUNCHES)
+    finally:
+        hyperopt.run_trial = real_run
+    records = [json.loads(x) for x in out_file.read_text().splitlines()]
+    n_eval = min(hyperopt.EVAL_BATCHES, n_test)
+    reckoned = {d: 0 for d in segsum.CNF_DIRECTIONS}
+    for t in trials:
+        t["launches"] = hyperopt_launches(t["cfg"], HYPEROPT_STEPS, n_eval)
+        for d, n in t["launches"].items():
+            reckoned[d] += n
+    if launched != reckoned or len(records) != HYPEROPT_TRIALS or \
+            [r["accuracy"] for r in records] != [t["score"] for t in trials]:
+        raise RuntimeError(f"hyperopt: launches {launched}, reckoned "
+                           f"{reckoned}; records {records}")
+
+    # each trial's first step, through the kernel and its plain version
+    for t in trials:
+        train = t["planned"][0]
+        _, _, (loss_k,) = hyperopt.train_trial(t["hp"], train, 1, t["seed"],
+                                               dev)
+        with plain_version():
+            _, _, (loss_p,) = hyperopt.train_trial(t["hp"], train, 1,
+                                                   t["seed"], dev)
+        t["first_loss_kernel"], t["first_loss_plain"] = \
+            float(loss_k), float(loss_p)
+        gap = abs(t["score"] - t["plain_score"])
+        if float(loss_k) != float(loss_p) or gap > HYPEROPT_SOLVED_TOL or \
+                not np.isfinite(t["losses"]).all():
+            raise RuntimeError(f"hyperopt trial {t['seed']}: first loss "
+                               f"{float(loss_k)} / {float(loss_p)}, solved "
+                               f"{t['score']} / {t['plain_score']}")
+        emit(phase="hyperopt_trial", trial=t["seed"], hp=t["hp"],
+             feature_maps=t["cfg"].feature_maps,
+             query_maps=t["cfg"].query_maps, steps=HYPEROPT_STEPS,
+             losses=t["losses"], first_loss_kernel=t["first_loss_kernel"],
+             first_loss_plain=t["first_loss_plain"],
+             solved_kernel=t["score"], solved_plain=t["plain_score"],
+             launches=t["launches"], train_seconds=t["train_seconds"],
+             step_ms=t["train_seconds"] / HYPEROPT_STEPS * 1e3,
+             eval_seconds=t["eval_seconds"])
+    emit(phase="hyperopt", seconds=seconds, trials=HYPEROPT_TRIALS,
+         launches=launched, launches_reckoned=reckoned, eval_batches=n_eval)
+
+    # the kernel at the trials' shapes: the first training batch's plans
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    plans = segsum.build_batch_plans(dataset.train_data().batches[0]).to(dev)
+    rows = []
+    for F in HYPEROPT_WIDTHS:
+        for plan in (plans.lit_to_clause, plans.clause_to_lit):
+            row, shape = tools["kernel_row"](plan, F, gen)
+            emit(phase="kernel_vs_plain", batch="hyperopt_train_batch_0",
+                 direction=plan.name, **shape, **row)
+            rows.append(dict(name=f"gather_segsum:{plan.name}",
+                             route="cuda", source=KERNEL_SOURCE,
+                             replaces=REPLACES, launches=launched[plan.name],
+                             max_abs_err=row["max_abs_err"], ms=row["ms"],
+                             plain_ms=row["plain_ms"],
+                             bound_ms=row["bound_ms"],
+                             bound_by=row["bound_by"],
+                             library_ms=row["library_ms"],
+                             shapes=f"hyperopt_train_batch_0, F={F}"))
+    out_file.unlink()
+    return {"launches": launched, "rows": rows}
+
+
+def anf_studies_part(dev, data_dir: Path, tools: dict) -> dict:
+    """Phase 12, the ANF studies: `python -m
+    diffusionsat_torch.anf_error_structure` in-process with the flagship
+    at 64 rounds and the input-anchor ladder on the test batches holding
+    the split's first 32 systems, held against the record's first 32
+    (per-variable accuracy within 0.005, systems solved raw and at each
+    anchor level within 2), its launches as reckoned, its wall split into
+    device and host; and `python -m diffusionsat_torch.anf_prior_study` on
+    the host over the first 8 systems of the repo's marginals, timed, its
+    conflicts beside the record's. Returns the study's launches."""
+    import argparse
+
+    from diffusionsat_torch import anf_error_structure, anf_eval
+    from diffusionsat_torch import anf_prior_study
+    from diffusionsat_torch.ops import segsum
+
+    sync = tools["sync"]
+    p = argparse.ArgumentParser()
+    anf_eval.add_data_args(p, train_size=8000, test_size=256)
+    t0 = time.perf_counter()
+    batches = anf_eval.build_anf_dataset(
+        p.parse_args(["--data_dir", str(data_dir)])).test_data()
+    n_batches, covered = 0, 0
+    while covered < ANF_STUDY_SYSTEMS:
+        covered += int(batches[n_batches].n_graphs)
+        n_batches += 1
+    emit(phase="anf_study_split", seconds=time.perf_counter() - t0,
+         batches=n_batches, systems=covered)
+
+    device_s = [0.0]
+    real_apply = anf_error_structure.anf_sat_apply
+
+    def timed_apply(*args, **kw):
+        sync()
+        t = time.perf_counter()
+        out = real_apply(*args, **kw)
+        sync()
+        device_s[0] += time.perf_counter() - t
+        return out
+
+    out_file = data_dir / "anf_structure.json"
+    anf_error_structure.anf_sat_apply = timed_apply
+    try:
+        segsum.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = anf_error_structure.main([
+            "--ckpt", str(ANF_CKPT), "--test_rounds", "64",
+            "--input_anchor", "--skip_frac_ladder", "--max_batches",
+            str(n_batches), "--data_dir", str(data_dir), "--out",
+            str(out_file)])
+        sync()
+        wall = time.perf_counter() - t0
+        launched = {k: v for k, v in segsum.LAUNCHES.items() if v}
+    finally:
+        anf_error_structure.anf_sat_apply = real_apply
+    reckoned = {"node_to_clause": 3 * 64 * n_batches,
+                "clause_to_node": 64 * n_batches,
+                "and_to_var": 64 * n_batches}
+    mine = json.loads(out_file.read_text())["systems"][:ANF_STUDY_SYSTEMS]
+    records = [json.loads(p.read_text()) for p in ANF_STUDY_RECORDS]
+    ladder = list(records[0]["summary"]["input_anchor_solved_at"])
+
+    def readings(systems):
+        """accuracy, raw solved, and solved at each anchor level"""
+        out = {"per_var_accuracy": 1.0 - sum(r["n_wrong"] for r in systems)
+               / sum(r["n_vars"] for r in systems),
+               "raw_solved": sum(r["already_solved"] for r in systems)}
+        for i, spec in enumerate(ladder):
+            out[f"anchor_{spec}"] = sum(
+                1 for r in systems
+                if r.get("anchor_solved_at") in ladder[:i + 1])
+        return out
+
+    got = readings(mine)
+    theirs = [readings(r["systems"][:ANF_STUDY_SYSTEMS]) for r in records]
+    outside = {}
+    for k, v in got.items():
+        tol = ANF_STUDY_ACC_TOL if k == "per_var_accuracy" else \
+            ANF_STUDY_SYSTEMS_TOL
+        lo, hi = min(t[k] for t in theirs), max(t[k] for t in theirs)
+        if not lo - tol <= v <= hi + tol:
+            outside[k] = (v, lo, hi)
+    if launched != reckoned or len(mine) != ANF_STUDY_SYSTEMS or outside:
+        raise RuntimeError(f"anf error structure: launches {launched} "
+                           f"(reckoned {reckoned}); outside the records' "
+                           f"span: {outside}; {got} against {theirs}")
+    emit(phase="anf_error_structure", batches=n_batches,
+         systems=summary["n_systems"], compared=ANF_STUDY_SYSTEMS,
+         readings=got, records={p.name: t for p, t in
+                                zip(ANF_STUDY_RECORDS, theirs)},
+         launches=launched, launches_reckoned=reckoned, wall_seconds=wall,
+         device_seconds=device_s[0], host_seconds=wall - device_s[0],
+         summary=summary)
+    out_file.unlink()
+
+    # the input-prior study: host CDCL only, timed
+    t0 = time.perf_counter()
+    prior, per = anf_prior_study.main([
+        "--marginals", str(PRIOR_MARGINALS), "--max_systems",
+        str(PRIOR_SYSTEMS), "--data_dir", str(data_dir)])
+    seconds = time.perf_counter() - t0
+    arms = ("plain", "seed_free", "seed_all", "input_first", "oracle")
+    rec = json.loads(PRIOR_RECORD.read_text())["per_system"]
+    same = sum(all(a[arm]["conflicts"] == b[arm]["conflicts"]
+                   for arm in arms) for a, b in zip(per, rec))
+    if len(per) != PRIOR_SYSTEMS or not all(
+            r[arm]["solved"] for r in per for arm in arms):
+        raise RuntimeError(f"anf prior study: {prior}")
+    emit(phase="anf_prior_study", systems=len(per), seconds=seconds,
+         systems_equal_to_record=same,
+         ms_by_arm={arm: prior[arm]["total_ms"] for arm in arms},
+         conflicts_median={arm: prior[arm]["conflicts_median"]
+                           for arm in arms})
+    return {"launches": launched}
+
+
+def studies_phase(dev, data_dir: Path, tools: dict) -> dict:
+    """Phase 12: the TSP stack, the hyperparameter search and the ANF
+    studies (`tsp_part`, `hyperopt_part`, `anf_studies_part`). Returns the
+    hyperopt rows of the kernels line and the ANF study's launches."""
+    t0 = time.perf_counter()
+    tsp = tsp_part(dev, tools)
+    search = hyperopt_part(dev, data_dir, tools)
+    anf = anf_studies_part(dev, data_dir, tools)
+    seconds = time.perf_counter() - t0
+    emit(phase="studies_phase", seconds=seconds)
+    return {"tsp": tsp, "rows": search["rows"],
+            "launches_hyperopt": search["launches"],
+            "launches_anf_structure": anf["launches"], "seconds": seconds}
+
+
 def grad_gate_study(dev) -> dict:
     """`--grad-gate-study`: phase 11's 4-round gradient check read on
     GATE_STUDY_BATCHES 20 000-node batches x GATE_STUDY_SEEDS params and
@@ -2172,10 +2675,11 @@ def main(argv: list[str]) -> int:
     import torch
 
     if argv not in ([], ["--only-anf"], ["--only-graphs"], ["--only-main"],
-                    ["--only-models"], ["--grad-gate-study"]):
+                    ["--only-models"], ["--only-studies"],
+                    ["--grad-gate-study"]):
         print("usage: chip_smoke.py [--only-anf | --only-graphs | "
-              "--only-main | --only-models | --grad-gate-study]",
-              file=sys.stderr)
+              "--only-main | --only-models | --only-studies | "
+              "--grad-gate-study]", file=sys.stderr)
         return 2
     only_anf = argv == ["--only-anf"]
     only_graphs = argv == ["--only-graphs"]
@@ -2395,6 +2899,13 @@ def main(argv: list[str]) -> int:
         return 0
     if argv == ["--grad-gate-study"]:
         grad_gate_study(dev)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if argv == ["--only-studies"]:
+        studies = studies_phase(dev, data_dir, tools)
+        print(json.dumps({"kernels": studies["rows"]}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -3150,6 +3661,7 @@ def main(argv: list[str]) -> int:
     graphs_phase(dev, data_dir, tools)
     generic = main_phase(dev, data_dir, tools, eval_batches)
     models = models_phase(dev, data_dir, tools)
+    studies = studies_phase(dev, data_dir, tools)
 
     # one row per kernel: times at the sampler's shapes, launches of the
     # sampler run; the solving eval's and the training paths' launches and
@@ -3179,8 +3691,11 @@ def main(argv: list[str]) -> int:
                for d, r in kernel_rows["primes_3599_x15"].items()]
     edge_rows = [row for row in models_kernel_rows(models)
                  if row["name"].split(":")[1] in EDGE_DIRECTIONS]
-    print(json.dumps({"kernels": kernels + anf["kernels"] + edge_rows}),
-          flush=True)
+    for row in anf["kernels"]:
+        row["launches_anf_structure"] = studies[
+            "launches_anf_structure"].get(row["name"].split(":")[1], 0)
+    print(json.dumps({"kernels": kernels + anf["kernels"] + edge_rows +
+                      studies["rows"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -116,6 +116,13 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
         anf_sat_apply,
         anf_sat_init,
     )
+    from diffusionsat_torch import hyperopt
+    from diffusionsat_torch.anf_error_structure import main as structure_main
+    from diffusionsat_torch.tsp.model import (
+        TSPMatrixSEConfig,
+        tsp_matrix_se_apply,
+        tsp_matrix_se_init,
+    )
 
     cfg = QuerySATConfig(feature_maps=8, query_maps=8, test_rounds=1)
     params = query_sat_init(torch.Generator().manual_seed(0), cfg)
@@ -133,6 +140,11 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
     anf_items = list(RandomAnfInstances(train_size=2).train_generator())
     anf_batch = build_anf_batch([(n, e) for n, e, _ in anf_items],
                                 ANFBucket(64, 64, 64, 256, 2))
+    tsp_cfg = TSPMatrixSEConfig(feature_maps=4, rounds=1)
+    tsp_params = tsp_matrix_se_init(torch.Generator().manual_seed(0),
+                                    tsp_cfg)
+    tsp_adj = torch.ones((1, 4, 4))
+    hp = hyperopt.TPESampler(hyperopt.SPACE).suggest()
     for call in (
             lambda: query_sat_dense_apply(params, cfg, dense),
             lambda: DiffusionSampler(params, cfg, cnf, dense=False),
@@ -173,7 +185,17 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
             lambda: harness.make_cactus(params, cfg, [batch],
                                         tmp_path / "c.csv"),
             lambda: harness.evaluate_round_generalization(
-                params, lambda r: cfg, [batch], tmp_path / "r.txt")):
+                params, lambda r: cfg, [batch], tmp_path / "r.txt"),
+            lambda: tsp_matrix_se_apply(tsp_params, tsp_cfg, tsp_adj,
+                                        tsp_adj),
+            lambda: hyperopt.main(["--data_dir", str(tmp_path), "--out",
+                                   str(tmp_path / "h.jsonl"), "--trials",
+                                   "1"]),
+            lambda: hyperopt.run_trial(hp, None, 1, 0),
+            lambda: hyperopt.train_trial(hp, None, 1, 0),
+            lambda: hyperopt.score_trial(params, cfg, []),
+            lambda: structure_main(["--ckpt", anf_ckpt, "--data_dir",
+                                    str(tmp_path)])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert not list(tmp_path.iterdir())    # refused before any data work
@@ -194,6 +216,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
                             None, device="cpu") == {}
     assert anf_sat_apply(anf_params, anf_cfg, anf_batch, training=False,
                          device="cpu")[0].shape == (64, 1)
+    assert tsp_matrix_se_apply(tsp_params, tsp_cfg, tsp_adj, tsp_adj,
+                               device="cpu")[0].shape == (1, 4, 4, 1)
 
 
 def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):
