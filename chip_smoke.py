@@ -42,15 +42,16 @@ Phases, each of which raises (exit code 1) on failure:
    tensors over 4 and over 32 rounds, printed beside the plain path's own
    run-to-run spread, which must read 0.0, and beside both with the head
    losses left unsorted;
-   launches per step against the reckoned 128 each way); 64 optimizer
+   launches per step against the reckoned 128 each way); 40 optimizer
    steps each of the dense f32, the dense block-bf16 and the flat kernel
    step from a seeded init (the mean loss of the last fifth must lie below
    0.9 of the first fifth's; steps per second; peak memory; the flat step
    must launch the kernel 128 times each way per step, the flat
    self-conditioning step 256 times); `python -m
-   diffusionsat_torch.diffusion_training` in-process in both layouts with
-   one eval, checkpoints, a restore and the exported params read back by
-   the solving eval; and a profile of one train step per layout;
+   diffusionsat_torch.diffusion_training` in-process in both layouts (20
+   steps) with one eval, a checkpoint, a restore (4 steps more) and the
+   exported params read back by the solving eval; and a profile of one
+   train step per layout;
 7. uniformity (a main path), with the sampling flagship
    `query_sat_3sat_diffusion_mlk64_iso45.npz` at full width, 32 diffusion
    steps x 32 rounds: `python -m diffusionsat_torch.uniformity_benchmark`
@@ -88,8 +89,8 @@ Phases, each of which raises (exit code 1) on failure:
    completion of the first 8 systems; and profiles of an eval round and
    of a train step in each layout.
 
-9. graphs (many steps per dispatch): 8 CUDA-graphed dense train steps
-   against 8 eager ones at full width on eight 20 000-node batches from one
+9. graphs (many steps per dispatch): 4 CUDA-graphed dense train steps
+   against 4 eager ones at full width on four 20 000-node batches from one
    state, f32 and block-bf16 (params, optimizer state, generator and every
    loss equal bit for bit; peak memory), 4 graphed flat ANF steps on padded
    plans against 4 eager ones (the same, and two eager runs equal to each
@@ -98,7 +99,8 @@ Phases, each of which raises (exit code 1) on failure:
    chain in both layouts (the same results and launch counts), the plain
    path's segment sums (run twice, timed by route), the wall and device
    busy share of each graphed path beside its eager counterpart, and a
-   cut `python -m diffusionsat_torch.bench` at f32 and block-bf16.
+   cut `python -m diffusionsat_torch.bench` (2 steps a replay) at f32 and
+   block-bf16.
 10. the generic entry point (a main path): `python -m diffusionsat_torch.main
    --model query_sat --task 3-sat` in-process at full width on a cut set
    (2000 training and 2000 test instances where a real run takes 100 000
@@ -162,10 +164,35 @@ Phases, each of which raises (exit code 1) on failure:
    on the host over 8 systems of `ANF_MARG_R17_M16.npz`, timed, its
    conflicts beside the record's.
 
+13. multi-device (a main path), at the flagship's full width over 4
+   ranks: NCCL with one card a rank when 4 cards are visible, else 4 gloo
+   ranks sharing the one card (all math and every kernel launch on the
+   card, the collectives staged through the host; the transport is
+   printed). Data parallelism on a 20 000-node threshold batch a rank, 2
+   steps, dense f32 and flat through the kernel, and ANF with the r17
+   flagship on 4 batches of the r17 training split at 16 rounds: the
+   averaged loss and every averaged gradient against rank 0's mean of the
+   four single-rank steps with the same draws, the params equal on every
+   rank, the flat steps' launches as reckoned (128 each way a step); the
+   clause-sharded step, with the all-reduce and with the halo exchange,
+   on one 20 000-node batch split 4 ways with per-shard kernel plans,
+   against the single-device planned step (4 rounds to 1e-4 of each
+   tensor's largest entry, 32 rounds to phase 6's 1e-2 gate, the head
+   order pinned to the single-device run), its launches as reckoned; the
+   halo's rows and a round's bytes against the all-reduce's, and both
+   exchanges timed; the sharded sampler chain of uf20 copies, 8 diffusion
+   steps x 32 rounds a rank, bit for bit equal to each rank's chain alone,
+   every counted sample satisfying; and the kernel on the shard's plans
+   and on the halo's send and receive plans.
+
+The full run makes its cached splits (`split_jobs`) ahead of the phases
+that read them, in a process of its own (`chip_smoke.py --make-splits
+DIR`) beside the card's work.
+
 `python3 chip_smoke.py --only-anf` builds and runs phase 8 alone,
 `--only-graphs` phase 9, `--only-main` phase 10 (after the eval split),
 `--only-models` phase 11 (generating `main`'s split when phase 10 has
-not left it) and `--only-studies` phase 12. `--grad-gate-study` builds
+not left it), `--only-studies` phase 12 and `--only-multi` phase 13. `--grad-gate-study` builds
 and reads phase 11's 4-round gradient gate on more batches and seeds,
 sound and with faults planted (`grad_gate_study`). Inference rounds run as CUDA graphs in every
 phase (the launches a graph captured are credited once per replay).
@@ -184,6 +211,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import io
 import json
 import shutil
@@ -226,15 +254,20 @@ SOLVED_FRACTION_TOL = 0.05
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL = 1e-2
 # training: the mean loss of the last fifth of the steps against the first
-# (150 steps until the uniformity phase joined the run and 80 until the ANF
-# phase did; cut to keep the script inside its time limit on a slow host)
-TRAIN_STEPS = 64
+# (150 steps until the uniformity phase joined the run, 80 until the ANF
+# phase did and 64 until the multi-device phase did; cut to keep the
+# script inside its time limit on a slow host)
+TRAIN_STEPS = 40
 LOSS_FALL_FACTOR = 0.9
 # launches of each direction in one 32-round flat train step: 2 a round
 # forward, and 2 a round as the backward of the other direction
 LAUNCHES_PER_TRAIN_STEP = 128
-# the cut training set of the smoke run
+# the cut training set of the smoke run, and the training script's steps
+# in-process (50 until the multi-device phase joined the run), a checkpoint
+# at the last, and the steps a restore adds
 TRAIN_SIZE = 4000
+SCRIPT_STEPS = 20
+SCRIPT_RESTORE_STEPS = 4
 # the solving eval: the repo's record reads 0.906 on a 2000-instance split
 # (binomial standard error 0.0065); this run's split is another draw of the
 # same distribution, so the window is about 3.5 standard errors wide
@@ -270,6 +303,11 @@ ANF_SCRIPT_TEST_SIZE = 8
 ANF_TRAIN_STEPS = 20
 ANF_FIRST_LOSS_RTOL = 1e-4
 ANF_COMPLETION_SYSTEMS = 8
+# phase 9: graphed dense train steps a replay against as many eager ones
+# (8 until the multi-device phase joined the run), and the cut bench's
+# steps a replay (the bench's default is 8)
+GRAPHS_MEGA_STEPS = 4
+GRAPHS_BENCH_MEGA_STEPS = 2
 # the generic entry point (phase 10): a cut training and test set (a real run
 # takes 100 000 and 10 000 instances: data quantity, not width; the test
 # set holds more than the cactus's 10 warm-up batches), its steps, and
@@ -371,6 +409,217 @@ ANF_STUDY_SYSTEMS_TOL = 2
 PRIOR_MARGINALS = ROOT / "ANF_MARG_R17_M16.npz"
 PRIOR_RECORD = ROOT / "ANF_PRIOR_R17.json"
 PRIOR_SYSTEMS = 8
+
+# phase 13: multi-device at the flagship's full width (128 / 128 maps, 8
+# heads, 32 train rounds) over 4 ranks, one card each under NCCL when 4
+# are visible, else 4 gloo ranks sharing one card (every collective staged
+# through the host). Data quantity is cut, not width: one 20 000-node
+# threshold batch of CDCL-labelled formulas a DP rank (2 steps), one such
+# batch split 4 ways by
+# clause for the sharded steps, 4 batches of the r17 training split for
+# ANF DP at 16 rounds, and 8 diffusion steps x 32 rounds of uf20 copies a
+# rank for the sharded chain
+MULTI_RANKS = 4
+MULTI_DP_STEPS = 2
+MULTI_ANF_ROUNDS = 16
+MULTI_CHAIN_STEPS = 8
+# the DP step's averaged gradients against rank 0's mean of the four
+# single-rank gradients, to this share of each tensor's largest entry
+# (floored at a hundredth of the largest gradient of all: the last
+# update_gate bias has a true gradient of zero)
+MULTI_DP_GRAD_TOL = 1e-5
+# the sharded steps against the single-device planned step with the same
+# draws and the head order pinned: the partial sums, their all-reduce and
+# the ranks' shares of the backward add in other orders than the whole
+# batch's plans. At 4 rounds to this share of each tensor's largest entry,
+# or, where more, to MULTI_GP_ORDER_FACTOR times the distance of the
+# single-device unplanned path (another summation order on one device)
+# from the planned one; at 32 rounds phase 6's gate (TRAIN_GRAD_TOL) of
+# kernel against plain path
+MULTI_GP_SHORT_ROUNDS = 4
+MULTI_GP_SHORT_TOL = 1e-4
+MULTI_GP_ORDER_FACTOR = 2
+MULTI_EXCHANGE_ITERS = 20
+
+
+def train_argv(data_dir: Path) -> list[str]:
+    """The training script's data flags for phase 6's cut training set."""
+    return ["--train_size", str(TRAIN_SIZE), "--test_size", "2000",
+            "--data_dir", str(data_dir)]
+
+
+def bank_argv(data_dir: Path) -> list[str]:
+    """The training script's data flags for phase 7's cut k64 set."""
+    return ["--train_size", str(BANK_TRAIN_SIZE), "--test_size", "200",
+            "--label_samples", str(BANK_K), "--data_dir", str(data_dir)]
+
+
+def anf_data_args(data_dir: Path, *argv: str):
+    """`anf_eval`'s data flags (its defaults: the 17-round test split)
+    with `argv` on top."""
+    import argparse
+
+    from diffusionsat_torch import anf_eval
+
+    p = argparse.ArgumentParser()
+    anf_eval.add_data_args(p, train_size=8000, test_size=256)
+    return p.parse_args(["--data_dir", str(data_dir), *argv])
+
+
+def main_argv(data_dir: Path, run_root: Path, every: int) -> list[str]:
+    """`main`'s flags for phases 10 and 11 on the cut 3-SAT set."""
+    return ["--model", "query_sat", "--task", "3-sat",
+            "--train_size", str(MAIN_TRAIN_SIZE),
+            "--test_size", str(MAIN_TEST_SIZE), "--eval_every", str(every),
+            "--ckpt_every", str(every), "--data_dir", str(data_dir),
+            "--train_dir", str(run_root)]
+
+
+def split_jobs(data_dir: Path, workers: int | None = None) -> dict:
+    """The cached splits that the full run reads, by name, in the order its
+    phases first read them: each a function that generates its split into
+    `data_dir` (or reads it back from there) and returns the batches.
+    `workers` caps the generator processes (None: the host's cores); the
+    splits do not depend on it."""
+    from diffusionsat_torch import anf_eval, diffusion_training, hyperopt
+    from diffusionsat_torch import main as generic
+    from diffusionsat_torch import solve_eval
+    from diffusionsat_torch.config import parse_config
+    from diffusionsat_torch.data.datasets import SatDataset
+    from diffusionsat_torch.graph.batch import BucketSpec
+
+    flags = ["--gen_workers", str(workers)] if workers else []
+
+    def eval_split():
+        return list(solve_eval.build_dataset(
+            60000, 2000, 3, 30, seed=0, data_dir=data_dir,
+            gen_workers=workers).test_data())
+
+    def script_split(argv):
+        # the training split, and the test split of the script's eval
+        ds = diffusion_training.build_dataset(parse_config(argv + flags))
+        return list(ds.train_data()), list(ds.test_data())
+
+    def main_split():
+        cfg = parse_config(main_argv(data_dir, data_dir / "main_runs",
+                                     MAIN_EVAL_EVERY) + flags)
+        bucket = BucketSpec.for_node_budget(cfg.max_nodes_per_batch)
+        ds = SatDataset(generic.build_instances(cfg), bucket,
+                        cache_dir=data_dir,
+                        name=f"3-sat_{cfg.min_vars}_{cfg.max_vars}_"
+                             f"{cfg.train_size}", seed=cfg.seed,
+                        gen_workers=cfg.gen_workers or None)
+        # the sweeps' small splits in one process: a pool's spawned
+        # workers take longer to start than these 10-50 instances take to
+        # generate
+        one = dataclasses.replace(cfg, gen_workers=1)
+        vargen = {c: len(generic._test_split(one, bucket, f"vargen_{c}_{c}",
+                                             c, c, 10))
+                  for c in MAIN_VARIABLE_GEN}
+        for budget in MAIN_BATCH_GEN:
+            generic._test_split(one, BucketSpec.for_node_budget(budget),
+                                f"batchgen_{budget}", cfg.min_vars,
+                                cfg.max_vars, 50)
+        return ds.train_data().batches, list(ds.test_data()), vargen
+
+    def anf_train_split():
+        # the cut training split, and the test split of the training
+        # script's eval
+        ds = anf_eval.build_anf_dataset(anf_data_args(
+            data_dir, "--train_size", str(ANF_TRAIN_SIZE), "--test_size",
+            str(ANF_SCRIPT_TEST_SIZE)))
+        ds.test_data()
+        return ds, ds.train_data()
+
+    def hyperopt_split():
+        # in one process: a pool's spawned workers take longer to start
+        # than these instances take to label
+        ds = hyperopt.build_dataset(train_size=HYPEROPT_TRAIN_SIZE,
+                                    data_dir=str(data_dir), gen_workers=1)
+        return ds, len(ds.train_data()), len(ds.test_data())
+
+    return {
+        "eval": eval_split,
+        "train": lambda: script_split(train_argv(data_dir)),
+        "bank": lambda: script_split(bank_argv(data_dir)),
+        "anf_test": lambda: anf_eval.build_anf_dataset(
+            anf_data_args(data_dir)).test_data(),
+        "anf_train": anf_train_split,
+        "main": main_split,
+        "hyperopt": hyperopt_split,
+    }
+
+
+def make_splits(data_dir: Path) -> int:
+    """`--make-splits DIR`: every split of `split_jobs` into DIR, in order,
+    on all but two of the host's cores (the card's phases run beside it),
+    printing `split <name> <seconds>` as each is in the cache."""
+    import os
+
+    jobs = split_jobs(data_dir, workers=max(1, (os.cpu_count() or 1) - 2))
+    for name, job in jobs.items():
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            job()
+        print(f"split {name} {time.perf_counter() - t0:.3f}", flush=True)
+    return 0
+
+
+class Splits:
+    """The run's cached splits. With `ahead`, a process of its own
+    (`chip_smoke.py --make-splits`, in a session of its own so that its
+    generator pool stops with it) makes them all in `split_jobs`' order
+    while the card works, and `get` waits for the one it is asked for;
+    without, `get` makes it there and then."""
+
+    def __init__(self, data_dir: Path, ahead: bool):
+        self.jobs = split_jobs(data_dir)
+        self.made: dict[str, float] = {}
+        self.proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--make-splits",
+             str(data_dir)], stdout=subprocess.PIPE, text=True,
+            start_new_session=True) if ahead else None
+
+    def get(self, name: str):
+        """(the split's batches, timings: `made_s` the maker's seconds for
+        it, `waited_s` for the maker here, `read_s` to read it back or,
+        without a maker, to make it)."""
+        t0 = time.perf_counter()
+        while self.proc is not None and name not in self.made:
+            line = self.proc.stdout.readline()
+            if not line:
+                raise RuntimeError(f"the split maker stopped (exit code "
+                                   f"{self.proc.wait()}) before {name}")
+            if line.startswith("split "):
+                _, made, seconds = line.split()
+                self.made[made] = float(seconds)
+        t1 = time.perf_counter()
+        out = self.jobs[name]()
+        return out, dict(made_s=self.made.get(name), waited_s=t1 - t0,
+                         read_s=time.perf_counter() - t1)
+
+    def close(self) -> None:
+        """Stop the maker and its pool if they still run."""
+        if self.proc is None:
+            return
+        if self.proc.poll() is None:
+            import os
+            import signal
+
+            os.killpg(self.proc.pid, signal.SIGTERM)
+        self.proc.wait()
+        self.proc.stdout.close()
+
+
+class KernelTotal:
+    """One kernel's device time over a profile: `key` its name, `count` its
+    launches, `self_device_time_total` its microseconds (the fields of
+    `key_averages`' rows that the readings use)."""
+
+    def __init__(self, key: str):
+        self.key = key
+        self.count = 0
+        self.self_device_time_total = 0.0
 
 
 @contextlib.contextmanager
@@ -600,7 +849,8 @@ def emit(**obj):
           flush=True)
 
 
-def uniformity_phase(dev, data_dir: Path, sync, busy_seconds) -> dict:
+def uniformity_phase(dev, data_dir: Path, sync, busy_seconds,
+                     splits: Splits) -> dict:
     """Phase 7: the uniformity battery, the cut k64 bank, the bank-frequency
     measurement and reweighted training. `busy_seconds(fn)` runs `fn` under
     the profiler and returns the device's busy seconds. Returns the segsum
@@ -612,7 +862,6 @@ def uniformity_phase(dev, data_dir: Path, sync, busy_seconds) -> dict:
         measure_bank_freq,
         uniformity_benchmark,
     )
-    from diffusionsat_torch.config import parse_config
     from diffusionsat_torch.diffusion.sampler import (
         make_dense_diffusion_chain,
     )
@@ -714,14 +963,8 @@ def uniformity_phase(dev, data_dir: Path, sync, busy_seconds) -> dict:
 
     # the cut k64 training set, its test split, and the measurement of the
     # sampler's bank frequencies on its first batches
-    bank_argv = ["--train_size", str(BANK_TRAIN_SIZE), "--test_size", "200",
-                 "--label_samples", str(BANK_K), "--data_dir",
-                 str(data_dir)]
-    t0 = time.perf_counter()
-    bank_ds = diffusion_training.build_dataset(parse_config(bank_argv))
-    bank_batches = list(bank_ds.train_data())
-    bank_test = list(bank_ds.test_data())
-    emit(phase="bank_split", seconds=time.perf_counter() - t0,
+    (bank_batches, bank_test), timing = splits.get("bank")
+    emit(phase="bank_split", **timing,
          instances=sum(int(b.n_graphs) for b in bank_batches),
          batches=len(bank_batches), test_batches=len(bank_test), K=BANK_K,
          graphs_per_batch=[int(b.n_graphs) for b in bank_batches],
@@ -796,7 +1039,7 @@ def uniformity_phase(dev, data_dir: Path, sync, busy_seconds) -> dict:
     sync()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
-        final = diffusion_training.main(bank_argv + [
+        final = diffusion_training.main(bank_argv(data_dir) + [
             "--train_steps", str(REWEIGHTED_STEPS), "--label_isolation_alpha",
             "0.45", "--label_logit_table", str(table_path), "--init_npz",
             str(ISO45), "--train_dir", str(uni_dir / "runs"), "--device",
@@ -901,21 +1144,14 @@ def anf_phase(dev, data_dir: Path, tools: dict) -> dict:
                     edges=int(b.edge_mask_c.sum()))
 
     # -- the splits: the eval's (anf_eval's defaults) and a cut training set
-    t0 = time.perf_counter()
-    test_batches = anf_eval.build_anf_dataset(data_args()).test_data()
-    test_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    train_ds = anf_eval.build_anf_dataset(data_args(
-        "--train_size", str(ANF_TRAIN_SIZE), "--test_size",
-        str(ANF_SCRIPT_TEST_SIZE)))
-    train_batches = train_ds.train_data()
-    train_s = time.perf_counter() - t0
+    test_batches, test_timing = tools["splits"].get("anf_test")
+    (train_ds, train_batches), train_timing = tools["splits"].get("anf_train")
     edges = [int(b.edge_mask_c.sum()) for b in test_batches]
-    emit(phase="anf_split", seconds=test_s, batches=len(test_batches),
+    emit(phase="anf_split", **test_timing, batches=len(test_batches),
          systems=sum(int(b.n_graphs) for b in test_batches),
          batch_0=shape_of(test_batches[0]), edges_min_max=[min(edges),
                                                           max(edges)],
-         train_seconds=train_s, train_batches=len(train_batches),
+         train_timing=train_timing, train_batches=len(train_batches),
          train_systems=sum(int(b.n_graphs) for b in train_batches),
          train_cut_from=2000,
          note="the training split's quantity is cut, not its width")
@@ -1281,10 +1517,11 @@ def anf_phase(dev, data_dir: Path, tools: dict) -> dict:
 
 def graphs_phase(dev, data_dir: Path, tools: dict) -> None:
     """Phase 9: many steps per dispatch, as CUDA graphs. At full width (128
-    / 128 maps, 32 train rounds; ANF 16): 8 graphed dense train steps
-    against 8 eager ones on eight 20 000-node threshold batches from one
-    state, f32 and block-bf16 (params, optimizer state, generator and every
-    loss equal bit for bit; peak memory); 4 graphed flat ANF steps on
+    / 128 maps, 32 train rounds; ANF 16): GRAPHS_MEGA_STEPS graphed dense
+    train steps against as many eager ones on as many 20 000-node
+    threshold batches from one state, f32 and block-bf16 (params,
+    optimizer state, generator and every loss equal bit for bit; peak
+    memory); 4 graphed flat ANF steps on
     padded plans against 4 eager ones (the same comparison); graphed
     inference rounds against eager ones (`DSAT_EAGER=1`) on the solving
     eval's batch 0, flat and dense, and on the sampler's chain in both
@@ -1292,14 +1529,14 @@ def graphs_phase(dev, data_dir: Path, tools: dict) -> None:
     segment sums' reductions timed and run twice; the wall and device busy
     share of every graphed path beside its eager counterpart; and a cut
     `python -m diffusionsat_torch.bench` (one window, one pass over the
-    batches, 8 steps a replay) at f32 and block-bf16."""
-    import argparse
+    batches, GRAPHS_BENCH_MEGA_STEPS steps a replay) at f32 and
+    block-bf16."""
     import os
 
     import numpy as np
     import torch
 
-    from diffusionsat_torch import anf_eval, bench, cuda_graphs, solve_eval
+    from diffusionsat_torch import bench, cuda_graphs
     from diffusionsat_torch.data.bench_workloads import threshold_3sat_batch
     from diffusionsat_torch.diffusion.sampler import DiffusionSampler
     from diffusionsat_torch.graph.dense_batch import densify_batches
@@ -1461,10 +1698,11 @@ def graphs_phase(dev, data_dir: Path, tools: dict) -> None:
             not torch.equal(p1, p2):
         raise RuntimeError("the plain segment sums differ between runs")
 
-    # -- dense mega-step: 8 graphed steps against 8 eager steps ------------
-    batches8 = [threshold_3sat_batch(rng, 20000)[0] for _ in range(8)]
-    dense8 = [d.to(dev) for d in densify_batches(batches8)]
-    chunk = stack_batches(dense8)
+    # -- dense mega-step: graphed steps against eager steps ----------------
+    n = GRAPHS_MEGA_STEPS
+    dense_n = [d.to(dev) for d in densify_batches(
+        [threshold_3sat_batch(rng, 20000)[0] for _ in range(n)])]
+    chunk = stack_batches(dense_n)
     for bf16 in (False, True):
         cfg = QuerySATConfig(block_bf16=bf16)
         g = seeded(0)
@@ -1478,15 +1716,15 @@ def graphs_phase(dev, data_dir: Path, tools: dict) -> None:
             step = make_train_step_for(query_sat_dense_apply, cfg, opt, dev)
             eager_state = clone_state(start)
 
-            def eager8():
+            def eager_n():
                 nonlocal eager_state
                 losses = []
-                for b in dense8:
+                for b in dense_n:
                     eager_state, out = step(eager_state, b)
                     losses.append(out["loss"])
                 return torch.stack(losses)
 
-            eager_wall, eager_losses = timed(eager8)
+            eager_wall, eager_losses = timed(eager_n)
             mega = make_scanned_train_step_for(query_sat_dense_apply, cfg,
                                                opt, dev)
             torch.cuda.reset_peak_memory_stats()
@@ -1496,16 +1734,16 @@ def graphs_phase(dev, data_dir: Path, tools: dict) -> None:
             n_diff, gen_equal, top = state_diffs(eager_state, graph_state)
             loss_equal = bool(torch.equal(eager_losses,
                                           out["loss_per_step"]))
-            # the eager 8 steps above and one replay; the busy time of one
+            # the eager steps above and one replay; the busy time of one
             # eager step and of one replay
-            walls = {"eager": eager_wall / 8,
-                     "graph": timed(lambda: mega(graph_state, chunk))[0] / 8}
+            walls = {"eager": eager_wall / n,
+                     "graph": timed(lambda: mega(graph_state, chunk))[0] / n}
             eager_prof = busy_of(lambda: step(clone_state(eager_state),
-                                              dense8[0]))
-            graph_prof = [x / 8 for x in
+                                              dense_n[0]))
+            graph_prof = [x / n for x in
                           busy_of(lambda: mega(graph_state, chunk))]
-        emit(phase="graphs_dense_mega_step", block_bf16=bf16, steps=8,
-             batch_shape=(dense8[0].G, dense8[0].Vg, dense8[0].Cg),
+        emit(phase="graphs_dense_mega_step", block_bf16=bf16, steps=n,
+             batch_shape=(dense_n[0].G, dense_n[0].Vg, dense_n[0].Cg),
              differing_entries=n_diff, max_abs_diff=top,
              generator_equal=gen_equal, losses_equal=loss_equal,
              losses=out["loss_per_step"].tolist(),
@@ -1521,18 +1759,13 @@ def graphs_phase(dev, data_dir: Path, tools: dict) -> None:
              peak_memory_gib=peak / 2 ** 30)
         if n_diff or not gen_equal or not loss_equal:
             raise RuntimeError(f"dense mega-step (bf16={bf16}) differs from "
-                               f"8 eager steps: {n_diff} entries, generator "
+                               f"{n} eager steps: {n_diff} entries, generator "
                                f"equal {gen_equal}, losses equal "
                                f"{loss_equal}")
         del mega, graph_state, eager_state, start
 
     # -- ANF flat mega-step: 4 graphed steps against 4 eager ones ----------
-    p = argparse.ArgumentParser()
-    anf_eval.add_data_args(p, train_size=8000, test_size=256)
-    anf_args = p.parse_args(["--data_dir", str(data_dir), "--train_size",
-                             str(ANF_TRAIN_SIZE), "--test_size",
-                             str(ANF_SCRIPT_TEST_SIZE)])
-    anf_batches = anf_eval.build_anf_dataset(anf_args).train_data()[:4]
+    anf_batches = tools["splits"].get("anf_train")[0][1][:4]
     anf_cfg = ANFSATConfig()
     pairs = [(b, build_plans(b, pad=True)) for b in anf_batches]
     anf_chunk = tuple(t.to(dev) for t in stack_batches(pairs))
@@ -1603,9 +1836,7 @@ def graphs_phase(dev, data_dir: Path, tools: dict) -> None:
     tree, meta = load_params(CKPT)
     params = params_from_numpy(tree, dev)
     cfg64 = QuerySATConfig(test_rounds=64)
-    eval_batch = solve_eval.build_dataset(
-        60000, 2000, 3, 30, seed=0, data_dir=data_dir).test_data()
-    eval_batch = list(eval_batch)[0]
+    eval_batch = tools["splits"].get("eval")[0][0]
     cases = {"solve_eval_flat": (query_sat_apply, eval_batch.to(dev),
                                  build_plans(eval_batch, pad=True).to(dev)),
              "solve_eval_dense": (query_sat_dense_apply,
@@ -1664,8 +1895,9 @@ def graphs_phase(dev, data_dir: Path, tools: dict) -> None:
                 profiled=False)
     cuda_graphs.clear_round_graphs()
 
-    # -- a cut bench run: one window, one pass, 8 steps a replay ----------
-    env = {"DSAT_MEGA_STEPS": "8", "DSAT_BENCH_WINDOWS": "1"}
+    # -- a cut bench run: one window, one pass, a short replay -------------
+    env = {"DSAT_MEGA_STEPS": str(GRAPHS_BENCH_MEGA_STEPS),
+           "DSAT_BENCH_WINDOWS": "1"}
     old = {k: os.environ.get(k) for k in (*env, "DSAT_BLOCK_BF16")}
     try:
         os.environ.update(env)
@@ -1675,7 +1907,8 @@ def graphs_phase(dev, data_dir: Path, tools: dict) -> None:
             with contextlib.redirect_stdout(buf):
                 res = bench.main(["--cycles", "1", "--n_batches", "1"])
             emit(phase="graphs_bench",
-                 cut="1 window of 1 pass over 1 batch's worth", **res)
+                 cut=f"1 window of 1 pass over 1 batch's worth, "
+                     f"{GRAPHS_BENCH_MEGA_STEPS} steps a replay", **res)
     finally:
         for k, v in old.items():
             if v is None:
@@ -1747,33 +1980,11 @@ def main_phase(dev, data_dir: Path, tools: dict, eval_batches) -> dict:
     # -- `main`'s splits, generated before the counted run ----------------
     run_root = data_dir / "main_runs"
     shutil.rmtree(run_root, ignore_errors=True)
-    argv = ["--model", "query_sat", "--task", "3-sat",
-            "--train_size", str(MAIN_TRAIN_SIZE),
-            "--test_size", str(MAIN_TEST_SIZE),
-            "--eval_every", str(MAIN_EVAL_EVERY),
-            "--ckpt_every", str(MAIN_EVAL_EVERY),
-            "--data_dir", str(data_dir), "--train_dir", str(run_root)]
+    argv = main_argv(data_dir, run_root, MAIN_EVAL_EVERY)
     cfg = parse_config(argv)
     bucket = BucketSpec.for_node_budget(cfg.max_nodes_per_batch)
-    t0 = time.perf_counter()
-    dataset = SatDataset(generic.build_instances(cfg), bucket,
-                         cache_dir=data_dir,
-                         name=f"3-sat_{cfg.min_vars}_{cfg.max_vars}_"
-                              f"{cfg.train_size}", seed=cfg.seed,
-                         gen_workers=cfg.gen_workers or None)
-    train_batches = dataset.train_data().batches
-    test = list(dataset.test_data())
-    # the sweeps' small splits, in this process: a pool's spawned workers
-    # take longer to start than these 10-50 instances take to generate
-    one = dataclasses.replace(cfg, gen_workers=1)
-    vargen = {c: len(generic._test_split(one, bucket, f"vargen_{c}_{c}",
-                                         c, c, 10))
-              for c in MAIN_VARIABLE_GEN}
-    for budget in MAIN_BATCH_GEN:
-        generic._test_split(one, BucketSpec.for_node_budget(budget),
-                            f"batchgen_{budget}", cfg.min_vars,
-                            cfg.max_vars, 50)
-    emit(phase="main_split", seconds=time.perf_counter() - t0,
+    (train_batches, test, vargen), timing = tools["splits"].get("main")
+    emit(phase="main_split", **timing,
          train_batches=len(train_batches), test_batches=len(test),
          test_graphs=[int(b.n_graphs) for b in test],
          vargen_batches=vargen)
@@ -1971,8 +2182,6 @@ def models_phase(dev, data_dir: Path, tools: dict) -> dict:
     from diffusionsat_torch import main as generic
     from diffusionsat_torch.config import parse_config
     from diffusionsat_torch.data.bench_workloads import threshold_3sat_batch
-    from diffusionsat_torch.data.datasets import SatDataset
-    from diffusionsat_torch.graph.batch import BucketSpec
     from diffusionsat_torch.ops import segsum
 
     sync = tools["sync"]
@@ -2003,14 +2212,9 @@ def models_phase(dev, data_dir: Path, tools: dict) -> dict:
             "--ckpt_every", "1000", "--data_dir", str(data_dir),
             "--train_dir", str(run_root)]
     cfg = parse_config(argv)
-    t0 = time.perf_counter()
-    n_test = len(SatDataset(
-        generic.build_instances(cfg),
-        BucketSpec.for_node_budget(cfg.max_nodes_per_batch),
-        cache_dir=data_dir, name=f"3-sat_{cfg.min_vars}_{cfg.max_vars}_"
-                                 f"{cfg.train_size}", seed=cfg.seed,
-        gen_workers=cfg.gen_workers or None).test_data().batches)
-    emit(phase="models_split", seconds=time.perf_counter() - t0,
+    (_, test, _), timing = tools["splits"].get("main")
+    n_test = len(test)
+    emit(phase="models_split", **timing,
          test_batches=n_test, vars=batch.V, clauses=batch.C,
          edges=plans.lit_to_clause.gather.shape[0])
 
@@ -2241,10 +2445,7 @@ def tsp_part(dev, tools) -> dict:
                 peak = torch.cuda.max_memory_allocated(dev)
                 finder_s = finder["seconds"] / TSP_STEPS
                 finder_calls = finder["calls"] / TSP_STEPS
-                # device activity only: recording the host side of a
-                # step's 5-18 thousand small ops costs seconds
-                with tools["profile"](activities=tools["activities"][-1:]
-                                      ) as prof:
+                with tools["profile"](activities=tools["activities"]) as prof:
                     step(params, opt_state)
                     sync()
                 kernels = tools["cuda_kernels"](prof)
@@ -2329,14 +2530,8 @@ def hyperopt_part(dev, data_dir: Path, tools: dict) -> dict:
     from diffusionsat_torch.ops import segsum
 
     sync = tools["sync"]
-    t0 = time.perf_counter()
-    # generated in this process: a pool's spawned workers take longer to
-    # start than these instances take to label
-    dataset = hyperopt.build_dataset(train_size=HYPEROPT_TRAIN_SIZE,
-                                     data_dir=str(data_dir), gen_workers=1)
-    n_train = len(dataset.train_data())
-    n_test = len(dataset.test_data())
-    emit(phase="hyperopt_split", seconds=time.perf_counter() - t0,
+    (dataset, n_train, n_test), timing = tools["splits"].get("hyperopt")
+    emit(phase="hyperopt_split", **timing,
          train_batches=n_train, test_batches=n_test)
 
     trials = []
@@ -2451,24 +2646,17 @@ def anf_studies_part(dev, data_dir: Path, tools: dict) -> dict:
     device and host; and `python -m diffusionsat_torch.anf_prior_study` on
     the host over the first 8 systems of the repo's marginals, timed, its
     conflicts beside the record's. Returns the study's launches."""
-    import argparse
-
-    from diffusionsat_torch import anf_error_structure, anf_eval
-    from diffusionsat_torch import anf_prior_study
+    from diffusionsat_torch import anf_error_structure, anf_prior_study
     from diffusionsat_torch.ops import segsum
 
     sync = tools["sync"]
-    p = argparse.ArgumentParser()
-    anf_eval.add_data_args(p, train_size=8000, test_size=256)
-    t0 = time.perf_counter()
-    batches = anf_eval.build_anf_dataset(
-        p.parse_args(["--data_dir", str(data_dir)])).test_data()
+    batches, timing = tools["splits"].get("anf_test")
     n_batches, covered = 0, 0
     while covered < ANF_STUDY_SYSTEMS:
         covered += int(batches[n_batches].n_graphs)
         n_batches += 1
-    emit(phase="anf_study_split", seconds=time.perf_counter() - t0,
-         batches=n_batches, systems=covered)
+    emit(phase="anf_study_split", **timing, batches=n_batches,
+         systems=covered)
 
     device_s = [0.0]
     real_apply = anf_error_structure.anf_sat_apply
@@ -2570,6 +2758,504 @@ def studies_phase(dev, data_dir: Path, tools: dict) -> dict:
     return {"tsp": tsp, "rows": search["rows"],
             "launches_hyperopt": search["launches"],
             "launches_anf_structure": anf["launches"], "seconds": seconds}
+
+
+class PinnedHeadOrder:
+    """`_head_weighted_loss` with the rank order of a reference run:
+    `record()` sorts as the model does and keeps each round's order,
+    `replay()` weights the heads in the kept order."""
+
+    def __init__(self):
+        self.orders, self.at = [], None
+
+    def record(self):
+        self.orders, self.at = [], None
+
+    def replay(self):
+        self.at = 0
+
+    def __call__(self, per_graph_loss, logit_maps):
+        import torch
+
+        costs = torch.square(torch.arange(
+            1, logit_maps + 1, dtype=torch.float32,
+            device=per_graph_loss.device))
+        if self.at is None:
+            order = torch.argsort(per_graph_loss, dim=-1, descending=True)
+            self.orders.append(order)
+        else:
+            order = self.orders[self.at]
+            self.at += 1
+        ranked = torch.gather(per_graph_loss, -1, order)
+        return torch.sum(ranked * costs) / torch.sum(costs)
+
+
+def labeled_threshold_batch(rng, budget: int, min_vars: int = 3,
+                            max_vars: int = 30):
+    """A batch packed to `budget` nodes as `threshold_3sat_batch` packs
+    it, of satisfiable threshold 3-SAT formulas labelled with a CDCL
+    solution each (an unsatisfiable draw is skipped): the trained model's
+    regime. (With random labels the flagship's 32-round loss is over 200
+    and its f32 gradient lies 0.14 of a tensor's largest entry from
+    float64.)"""
+    from diffusionsat_torch.graph.batch import BucketSpec, build_batch
+    from diffusionsat_torch.sat.solvers import solve
+
+    bucket = BucketSpec.for_node_budget(budget, max_graphs=512)
+    formulas, sols = [], []
+    v_tot = c_tot = e_tot = 0
+    while True:
+        n = int(rng.integers(min_vars, max_vars + 1))
+        m = int(4.258 * n + 58.26 * n ** (-2.0 / 3.0))
+        clauses = [[int(v) if rng.random() < 0.5 else -int(v)
+                    for v in rng.choice(n, size=3, replace=False) + 1]
+                   for _ in range(m)]
+        if (2 * (v_tot + n) + c_tot + m > budget
+                or v_tot + n > bucket.max_vars
+                or c_tot + m > bucket.max_clauses
+                or e_tot + 3 * m > bucket.max_edges
+                or len(formulas) >= bucket.max_graphs):
+            break
+        sat, model = solve(clauses, n)
+        if not sat:
+            continue
+        formulas.append((n, clauses))
+        sols.append([int(x > 0) for x in model])
+        v_tot += n
+        c_tot += m
+        e_tot += 3 * m
+    return build_batch(formulas, bucket, solutions=sols)
+
+
+class CaptureGrads:
+    """An optimizer that keeps the gradients it is handed as its state and
+    leaves the params as they are: a step's gradients, read back."""
+
+    def init(self, params):
+        return None
+
+    def update(self, grads, state, params):
+        return params, grads
+
+
+def multi_rank(ctx, spec: dict) -> dict:
+    """Phase 13 on one rank (a spawned process: torch and the port only).
+    Returns host data: readings, checks' errors and launch counts."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.utils import _pytree as pytree
+
+    from diffusionsat_torch.diffusion.sampler import make_diffusion_chain
+    from diffusionsat_torch.graph.dense_batch import densify_batches_quantized
+    from diffusionsat_torch.models import query_sat as qs
+    from diffusionsat_torch.models.anf_sat import ANFSATConfig, anf_sat_apply
+    from diffusionsat_torch.models.query_sat_dense import (
+        query_sat_dense_apply,
+    )
+    from diffusionsat_torch.ops import segsum
+    from diffusionsat_torch.parallel import dp, graph_partition, halo
+    from diffusionsat_torch.parallel.comm import all_reduce_sum, transport
+    from diffusionsat_torch.sat.cnf import VariableAssignment
+    from diffusionsat_torch.train.adabelief import adabelief
+    from diffusionsat_torch.train.checkpoint import params_from_numpy
+    from diffusionsat_torch.train.loop import (
+        TrainState,
+        _grad_leaves,
+        _grads_of,
+        build_plans,
+    )
+
+    dev = ctx.device
+    mesh = ctx.mesh(n_data=ctx.world)
+    gp_mesh = ctx.mesh(n_data=1, n_graph=ctx.world)
+    rank, n = ctx.rank, ctx.world
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    out: dict = {"rank": rank, "transport": transport(mesh.data_group, dev)}
+    params = params_from_numpy(spec["params"], dev)
+    cfg = qs.QuerySATConfig.from_meta(spec["config"])
+
+    def gen(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    def state_of(p, opt, seed=0):
+        return TrainState(params=p, opt_state=opt.init(p), step=0,
+                          generator=gen(seed))
+
+    def leaves(tree):
+        return pytree.tree_leaves(tree)
+
+    def grad_share(got, want):
+        """Largest error as a share of its tensor's largest entry,
+        floored at a hundredth of the largest gradient of all."""
+        top = max(w.abs().max().item() for w in want)
+        return max((g - w).abs().max().item() /
+                   max(w.abs().max().item(), top / 100)
+                   for g, w in zip(got, want))
+
+    def params_hash(p):
+        h = hashlib.sha1()
+        for t in leaves(p):
+            h.update(t.detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def single_grads(apply_fn, model_cfg, p, batch, g, plans=None, **kw):
+        tree, lv, spec_ = _grad_leaves(p)
+        if plans is not None:
+            kw["plans"] = plans
+        _, loss, _, _ = apply_fn(tree, model_cfg, batch, g, training=True,
+                                 labels=batch.solutions, device=dev, **kw)
+        return loss.detach(), _grads_of(loss, lv, spec_)[1]
+
+    def barrier_ms(fn, iters):
+        fn()
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    # -- DP: dense f32, flat through the kernel, ANF flat --------------
+    seed = spec["seed"]
+    cnf = [b for b in spec["dp_batches"]]
+    dense = [densify_batches_quantized([b])[0] for b in cnf]
+    anf_cfg = ANFSATConfig.from_meta(spec["anf_config"],
+                                     train_rounds=MULTI_ANF_ROUNDS)
+    anf_params = params_from_numpy(spec["anf_params"], dev)
+    for name, apply_fn, model_cfg, p, batches in (
+            ("dp_dense", query_sat_dense_apply, cfg, params, dense),
+            ("dp_flat", qs.query_sat_apply, cfg, params, cnf),
+            ("dp_anf", anf_sat_apply, anf_cfg, anf_params,
+             spec["anf_batches"])):
+        mine = batches[mesh.data_index].to(dev)
+        plans = build_plans(batches[mesh.data_index])
+        plans = None if plans is None else plans.to(dev)
+        step = dp.make_dp_train_step(model_cfg, CaptureGrads(), mesh,
+                                     apply_fn)
+        st, o = step(state_of(p, CaptureGrads(), seed), mine, plans)
+        got = leaves(st.opt_state)
+        rec = {"loss": o["loss"].item(), "gradnorm": o["gradnorm"].item()}
+        if rank == 0:
+            # every rank's gradient again, here, with that rank's draws
+            refs, losses = [], []
+            for r, b in enumerate(batches):
+                bp = build_plans(b)
+                loss, g = single_grads(
+                    apply_fn, model_cfg, p, b.to(dev),
+                    dp.rank_generator(seed, r, 0, dev),
+                    None if bp is None else bp.to(dev))
+                losses.append(loss.item())
+                refs.append(g)
+            mean = [torch.stack(gs).mean(0) for gs in zip(*refs)]
+            rec.update(single_losses=losses,
+                       loss_error=abs(rec["loss"] - float(np.mean(losses))),
+                       grad_error=grad_share(got, mean))
+            del refs, mean
+        opt = adabelief(learning_rate=1e-3)
+        step = dp.make_dp_train_step(model_cfg, opt, mesh, apply_fn)
+        st = state_of(p, opt, seed)
+        segsum.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(MULTI_DP_STEPS):
+            st, o = step(st, mine, plans)
+            losses.append(o["loss"].item())
+        sync()
+        rec.update(step_wall_s=(time.perf_counter() - t0) / MULTI_DP_STEPS,
+                   launches=dict(segsum.LAUNCHES), losses=losses,
+                   hash=params_hash(st.params))
+        out[name] = rec
+        del st, step, got
+    del dense
+
+    # -- GP (all-reduce) and halo on one batch, 4 clause shards --------
+    whole = spec["gp_batch"]
+    local, local_plans = graph_partition.place_local_batch(
+        graph_partition.build_local_batches(whole, n), gp_mesh)
+    whole_plans = segsum.build_batch_plans(whole).to(dev)
+    whole = whole.to(dev)
+    plan = halo.build_halo_plan(spec["gp_batch"], n)
+    out["halo_rows"] = plan.halo_rows
+    out["literal_rows"] = plan.literal_rows
+    pinned = PinnedHeadOrder()
+    sorted_loss = qs._head_weighted_loss
+    qs._head_weighted_loss = pinned
+    gp = {}
+    try:
+        for rounds in (MULTI_GP_SHORT_ROUNDS, cfg.train_rounds):
+            rcfg = dataclasses.replace(cfg, train_rounds=rounds)
+            pinned.record()
+            ref_loss, ref = single_grads(qs.query_sat_apply, rcfg, params,
+                                         whole, gen(seed), whole_plans)
+            if rounds == MULTI_GP_SHORT_ROUNDS:
+                # the same step in another summation order on one device
+                # (the unplanned path): how far order alone moves the
+                # gradients
+                pinned.replay()
+                plain_loss, plain = single_grads(qs.query_sat_apply, rcfg,
+                                                 params, whole, gen(seed))
+                gp[f"plain_{rounds}"] = dict(
+                    loss=plain_loss.item(), ref_loss=ref_loss.item(),
+                    grad_error=grad_share(plain, ref))
+                del plain
+            for mode in ("gp", "halo"):
+                step = graph_partition.make_gp_train_step(
+                    rcfg, CaptureGrads(), gp_mesh,
+                    halo=plan.view(gp_mesh.graph_index)
+                    if mode == "halo" else None)
+                pinned.replay()
+                segsum.reset_launch_counts()
+                sync()
+                t0 = time.perf_counter()
+                st, o = step(state_of(params, CaptureGrads(), seed), local,
+                             local_plans)
+                sync()
+                wall = time.perf_counter() - t0
+                gp[f"{mode}_{rounds}"] = dict(
+                    loss=o["loss"].item(), ref_loss=ref_loss.item(),
+                    grad_error=grad_share(leaves(st.opt_state), ref),
+                    wall_s=wall, launches=dict(segsum.LAUNCHES))
+                del st
+            del ref
+    finally:
+        qs._head_weighted_loss = sorted_loss
+    out["gp"] = gp
+
+    # -- a round's exchanges, timed: [2V, Q] all-reduce against halo ----
+    x = torch.randn((2 * whole.V, cfg.query_maps), generator=gen(rank),
+                    device=dev)
+    view = plan.view(gp_mesh.graph_index).to(dev)
+    out["exchange_ms"] = {
+        "all_reduce": barrier_ms(lambda: all_reduce_sum(
+            x, gp_mesh.graph_group), MULTI_EXCHANGE_ITERS),
+        "halo": barrier_ms(lambda: halo.halo_exchange(
+            x, view, gp_mesh.graph_group), MULTI_EXCHANGE_ITERS)}
+    del x, local, whole, whole_plans
+
+    # -- the sharded sampler chain ------------------------------------------
+    cfg32 = qs.QuerySATConfig.from_meta(spec["config"], test_rounds=32)
+    chain = make_diffusion_chain(cfg32, diffusion_steps=MULTI_CHAIN_STEPS,
+                                 test_rounds=32)
+    cb = spec["chain_batch"].to(dev)
+    cplans = segsum.build_batch_plans(spec["chain_batch"]).to(dev)
+    sync()
+    t0 = time.perf_counter()
+    got = dp.dp_chain(chain, params, cb, gen(100 + mesh.data_index), mesh,
+                      cplans)
+    sync()
+    rec = {"wall_s": time.perf_counter() - t0}
+    if got is not None:
+        bits, solved = (t.cpu().numpy() for t in got)
+        alone = [chain(params, cb, gen(100 + r), plans=cplans)
+                 for r in range(n)]
+        rec["bitwise_equal"] = all(
+            np.array_equal(bits[r], a[0].cpu().numpy()) and
+            np.array_equal(solved[r], a[1].cpu().numpy())
+            for r, a in enumerate(alone))
+        nv, clauses = spec["chain_formula"]
+        counted = unsat = 0
+        for r in range(n):
+            for g in np.flatnonzero(solved[r][:spec["chain_graphs"]]):
+                asgn = VariableAssignment(nv, clauses)
+                asgn.assign_all(bits[r][g * nv:(g + 1) * nv].astype(bool))
+                counted += 1
+                unsat += not asgn.satisfiable()
+        rec.update(counted=counted, unsat=unsat,
+                   solved_fraction=float(solved[:, :spec[
+                       "chain_graphs"]].mean()))
+    out["chain"] = rec
+    return out
+
+
+def multi_phase(dev, data_dir: Path, tools: dict) -> list[dict]:
+    """Phase 13: multi-device. Four ranks (NCCL, one card each, with 4
+    cards visible; else 4 gloo ranks on one card): DP at full width dense
+    f32 and flat through the kernel, ANF DP with the r17 flagship's config,
+    the clause-sharded step with the all-reduce and with the halo exchange
+    against the single-device planned step, a round's exchanges timed, and
+    the sharded sampler chain against each rank's chain alone. Then the
+    kernel on the per-shard plans (and the halo's send and receive plans)
+    of the 20 000-node batch split 4 ways. Returns the kernels line's
+    rows."""
+    import numpy as np
+    import torch
+
+    from diffusionsat_torch.diffusion.sampler import DiffusionSampler
+    from diffusionsat_torch.models.query_sat import QuerySATConfig
+    from diffusionsat_torch.ops import segsum
+    from diffusionsat_torch.parallel import graph_partition, halo
+    from diffusionsat_torch.parallel.mesh import launch
+    from diffusionsat_torch.sat.cnf import CNF
+    from diffusionsat_torch.train.checkpoint import (
+        load_params,
+        params_from_numpy,
+    )
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= MULTI_RANKS else "gloo"
+    devices = None if backend == "nccl" else ["cuda:0"] * MULTI_RANKS
+    emit(multi={"ranks": MULTI_RANKS, "transport": "nccl" if backend ==
+                "nccl" else "gloo-host", "cards": cards})
+
+    # the host inputs, built once here and handed to the ranks
+    t0 = time.perf_counter()
+    tree, meta = load_params(CKPT)
+    anf_tree, anf_meta = load_params(ANF_CKPT)
+    dp_batches = [labeled_threshold_batch(np.random.default_rng(10 + r),
+                                          20000)
+                  for r in range(MULTI_RANKS)]
+    gp_batch = labeled_threshold_batch(np.random.default_rng(0), 20000)
+    (_, anf_train), _ = tools["splits"].get("anf_train")
+    cfg32 = QuerySATConfig.from_meta(meta["config"], test_rounds=32)
+    sampler = DiffusionSampler(params_from_numpy(tree, "cpu"), cfg32,
+                               CNF.load(UF20),
+                               diffusion_steps=MULTI_CHAIN_STEPS,
+                               test_rounds=32, dense=False, device="cpu")
+    spec = dict(params=tree, config=meta["config"], anf_params=anf_tree,
+                anf_config=anf_meta["config"], seed=5,
+                dp_batches=dp_batches,
+                anf_batches=list(anf_train)[:MULTI_RANKS],
+                gp_batch=gp_batch, chain_batch=sampler.batch,
+                chain_formula=(sampler.n_vars, sampler.clauses),
+                chain_graphs=sampler.graphs_per_batch)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = launch(multi_rank, MULTI_RANKS, backend, devices, spec)
+    ranks_s = time.perf_counter() - t0
+    r0 = res[0]
+    transports = {r["transport"] for r in res}
+
+    # DP: the averaged loss and gradients, replicated params, launches
+    for name in ("dp_dense", "dp_flat", "dp_anf"):
+        recs = [r[name] for r in res]
+        a = recs[0]
+        emit(phase="multi_" + name, ranks=MULTI_RANKS,
+             transport=sorted(transports), loss=a["loss"],
+             single_losses=a["single_losses"], loss_error=a["loss_error"],
+             grad_error=a["grad_error"], tolerance=MULTI_DP_GRAD_TOL,
+             gradnorm=a["gradnorm"], steps=MULTI_DP_STEPS,
+             step_wall_s=[r["step_wall_s"] for r in recs],
+             losses=a["losses"], launches=[r["launches"] for r in recs],
+             params_replicated=len({r["hash"] for r in recs}) == 1)
+        if a["grad_error"] > MULTI_DP_GRAD_TOL or \
+                a["loss_error"] > 1e-5 * abs(a["loss"]):
+            raise RuntimeError(f"{name}: the DP step is not the mean of the "
+                               f"single-rank steps: {a}")
+        if len({r["hash"] for r in recs}) != 1:
+            raise RuntimeError(f"{name}: params differ across ranks")
+        if not np.all(np.isfinite(a["losses"])):
+            raise RuntimeError(f"{name}: non-finite loss")
+    for r in res:
+        want = {d: MULTI_DP_STEPS * LAUNCHES_PER_TRAIN_STEP
+                for d in ("lit_to_clause", "clause_to_lit")}
+        if {d: r["dp_flat"]["launches"].get(d, 0) for d in want} != want:
+            raise RuntimeError(f"dp_flat launches on rank {r['rank']}: "
+                               f"{r['dp_flat']['launches']}")
+        if any(r["dp_dense"]["launches"].values()):
+            raise RuntimeError("dp_dense launched the segsum kernel")
+        if min(r["dp_anf"]["launches"].get(d, 0) for d in (
+                "node_to_clause", "clause_to_node")) <= 0:
+            raise RuntimeError(f"dp_anf launches: {r['dp_anf']['launches']}")
+
+    # GP and halo against the single-device planned step
+    bytes_round = halo.comm_bytes_per_round(
+        halo.build_halo_plan(gp_batch, MULTI_RANKS),
+        QuerySATConfig.from_meta(meta["config"]).query_maps)
+    failed = []
+    for key, g in r0["gp"].items():
+        mode, rounds = key.split("_")
+        if mode == "plain":
+            continue
+        spread = r0["gp"][f"plain_{MULTI_GP_SHORT_ROUNDS}"]["grad_error"]
+        tol = max(MULTI_GP_SHORT_TOL, MULTI_GP_ORDER_FACTOR * spread) \
+            if int(rounds) == MULTI_GP_SHORT_ROUNDS else TRAIN_GRAD_TOL
+        emit(phase="multi_" + mode, rounds=int(rounds), shards=MULTI_RANKS,
+             transport=sorted(transports), loss=g["loss"],
+             single_device_loss=g["ref_loss"], grad_error=g["grad_error"],
+             tolerance=tol,
+             single_device_order_spread_4_rounds=spread,
+             head_order="pinned to the single-device run",
+             step_wall_s=[r["gp"][key]["wall_s"] for r in res],
+             launches=[r["gp"][key]["launches"] for r in res])
+        if g["grad_error"] > tol or abs(g["loss"] - g["ref_loss"]) > \
+                TRAIN_LOSS_RTOL * abs(g["ref_loss"]):
+            failed.append(f"{key}: the sharded step is not the single-"
+                          f"device step: {g}")
+        n_launch = LAUNCHES_PER_TRAIN_STEP * int(rounds) // 32
+        for r in res:
+            got = r["gp"][key]["launches"]
+            want = {"lit_to_clause": n_launch, "clause_to_lit": n_launch}
+            if mode == "halo":
+                # 2 exchanges a round forward, their backwards, and the
+                # backward of the state's balancing from the second round
+                # on (parallel/halo.HaloView.balance_copies)
+                n_halo = n_launch + int(rounds) - 1
+                want.update(halo_send=n_halo, halo_recv=n_halo)
+            if {d: got.get(d, 0) for d in want} != want:
+                failed.append(f"{key} launches on rank {r['rank']}: "
+                              f"{got}, reckoned {want}")
+    if failed:
+        raise RuntimeError("; ".join(failed))
+    emit(phase="multi_exchange", halo_rows=r0["halo_rows"],
+         literal_rows=r0["literal_rows"], bytes_per_round=bytes_round,
+         width=QuerySATConfig.from_meta(meta["config"]).query_maps,
+         exchange_ms={k: [r["exchange_ms"][k] for r in res]
+                      for k in r0["exchange_ms"]},
+         transport=sorted(transports))
+
+    # the sharded chain
+    c = r0["chain"]
+    emit(phase="multi_chain", ranks=MULTI_RANKS,
+         diffusion_steps=MULTI_CHAIN_STEPS, rounds=32,
+         graphs_per_rank=spec["chain_graphs"], **c)
+    if not c["bitwise_equal"]:
+        raise RuntimeError("the sharded chain differs from the ranks' "
+                           "chains run alone")
+    if c["unsat"] or c["counted"] < 1:
+        raise RuntimeError(f"multi_chain: {c['unsat']} of {c['counted']} "
+                           "counted samples unsat")
+
+    # the kernel on the per-shard plans and the halo's plans
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    local = graph_partition.local_batch(
+        graph_partition.build_local_batches(gp_batch, MULTI_RANKS), 0)
+    shard_plans = segsum.build_batch_plans(local).to(dev)
+    view = halo.build_halo_plan(gp_batch, MULTI_RANKS).view(0).to(dev)
+    rows = []
+    for plan, launches_of in (
+            (shard_plans.lit_to_clause, "gp_32"),
+            (shard_plans.clause_to_lit, "gp_32"),
+            (view.send, "halo_32"), (view.recv, "halo_32")):
+        row, shape = tools["kernel_row"](plan, 128, gen)
+        emit(phase="multi_kernel_vs_plain",
+             batch="labelled_threshold3sat_20k/4",
+             direction=plan.name, **shape, **row)
+        rows.append(dict(
+            name=f"gather_segsum:{plan.name}@shard", route="cuda",
+            source=KERNEL_SOURCE, replaces=REPLACES,
+            launches=r0["gp"][launches_of]["launches"].get(plan.name, 0),
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            shapes=f"labelled threshold 20k shard 0 of {MULTI_RANKS}, "
+                   "F=128",
+            launches_run=f"rank 0, one {launches_of.split('_')[0]} "
+                         "step of 32 rounds"))
+    emit(phase="multi_time", setup_s=setup_s, ranks_s=ranks_s,
+         seconds=time.perf_counter() - t_phase)
+    return rows
 
 
 def grad_gate_study(dev) -> dict:
@@ -2674,17 +3360,16 @@ def models_kernel_rows(models: dict) -> list[dict]:
 def main(argv: list[str]) -> int:
     import torch
 
+    if len(argv) == 2 and argv[0] == "--make-splits":
+        sys.path.insert(0, str(ROOT))
+        return make_splits(Path(argv[1]))
     if argv not in ([], ["--only-anf"], ["--only-graphs"], ["--only-main"],
-                    ["--only-models"], ["--only-studies"],
+                    ["--only-models"], ["--only-studies"], ["--only-multi"],
                     ["--grad-gate-study"]):
         print("usage: chip_smoke.py [--only-anf | --only-graphs | "
               "--only-main | --only-models | --only-studies | "
-              "--grad-gate-study]", file=sys.stderr)
+              "--only-multi | --grad-gate-study]", file=sys.stderr)
         return 2
-    only_anf = argv == ["--only-anf"]
-    only_graphs = argv == ["--only-graphs"]
-    only_main = argv == ["--only-main"]
-    only_models = argv == ["--only-models"]
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2694,10 +3379,25 @@ def main(argv: list[str]) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    # the full run makes its splits ahead, beside the card's work
+    splits = Splits(ROOT / "data_cache", ahead=not argv)
+    try:
+        return run(argv, splits)
+    finally:
+        splits.close()
+
+
+def run(argv: list[str], splits: Splits) -> int:
+    """The phases that `argv` asks for (all of them without arguments)."""
     import numpy as np
+    import torch
+
+    only_anf = argv == ["--only-anf"]
+    only_graphs = argv == ["--only-graphs"]
+    only_main = argv == ["--only-main"]
+    only_models = argv == ["--only-models"]
 
     from diffusionsat_torch import diffusion_training, solve_eval
-    from diffusionsat_torch.config import parse_config
     from diffusionsat_torch.data.bench_workloads import threshold_3sat_batch
     from diffusionsat_torch.data.datasets import PackedBatches
     from diffusionsat_torch.device import resolve_device
@@ -2754,9 +3454,16 @@ def main(argv: list[str]) -> int:
                 fn()
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(iters):
-                fn()
+        # no garbage collection while capturing: a collected graph of an
+        # earlier call (an exception's frames keep one alive) destroyed in
+        # the middle of this capture would invalidate it
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                for _ in range(iters):
+                    fn()
+        finally:
+            gc.enable()
         graph.replay()
         sync()
         start = torch.cuda.Event(enable_timing=True)
@@ -2847,20 +3554,33 @@ def main(argv: list[str]) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    # device activity only: every reading below is of CUDA kernels, and
+    # recording the host side of a step's 13-18 thousand small ops costs
+    # seconds a profile
+    activities = [ProfilerActivity.CUDA]
+
     def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or \
-            getattr(e, "self_cuda_time_total", 0)
+        return e.self_device_time_total
 
     def cuda_kernels(prof):
-        return [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+        """The device's kernels (and copies) of a profile, their time summed
+        by name as `key_averages` sums it, read from the profiler's raw
+        events: `key_averages` first builds the host's event tree, tens of
+        seconds for the 10^5 kernels of a profiled chain or mega-step."""
+        totals: dict[str, KernelTotal] = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != DeviceType.CUDA or e.duration_ns() <= 0:
+                continue
+            total = totals.setdefault(e.name(), KernelTotal(e.name()))
+            total.count += 1
+            total.self_device_time_total += e.duration_ns() / 1e3
+        return list(totals.values())
 
     def segsum_us(kernels):
         return sum(dev_us(e) for e in kernels if "gather_segsum" in e.key)
 
     def busy_seconds(fn):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             fn()
         return sum(dev_us(e) for e in cuda_kernels(prof)) / 1e6
 
@@ -2881,8 +3601,8 @@ def main(argv: list[str]) -> int:
          library=solver_lib.name)
     data_dir = ROOT / "data_cache"
     tools = dict(sync=sync, device_ms=device_ms, kernel_row=kernel_row,
-                 profile=profile, activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA],
+                 splits=splits,
+                 profile=profile, activities=activities,
                  cuda_kernels=cuda_kernels, dev_us=dev_us)
     if only_graphs:
         graphs_phase(dev, data_dir, tools)
@@ -2899,6 +3619,13 @@ def main(argv: list[str]) -> int:
         return 0
     if argv == ["--grad-gate-study"]:
         grad_gate_study(dev)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if argv == ["--only-multi"]:
+        rows = multi_phase(dev, data_dir, tools)
+        print(json.dumps({"kernels": rows}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -2921,11 +3648,8 @@ def main(argv: list[str]) -> int:
 
     # the eval's test split, generated here by the native solver unless an
     # earlier run left it in the cache directory
-    t0 = time.perf_counter()
-    eval_batches = list(solve_eval.build_dataset(
-        60000, 2000, 3, 30, seed=0, data_dir=data_dir).test_data())
-    emit(phase="eval_split", seconds=time.perf_counter() - t0,
-         batches=len(eval_batches),
+    eval_batches, timing = splits.get("eval")
+    emit(phase="eval_split", **timing, batches=len(eval_batches),
          instances=sum(int(b.n_graphs) for b in eval_batches))
     if only_main:
         generic = main_phase(dev, data_dir, tools, eval_batches)
@@ -3124,8 +3848,7 @@ def main(argv: list[str]) -> int:
         runs = [run_rounds(batch, plans, 8, inputs=inputs, **kw)
                 for _ in range(3)]
         wall = min(r[0] for r in runs)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             prof_wall, rounds_run, _ = run_rounds(batch, plans, 8,
                                                   inputs=inputs, **kw)
         if not kw and ({r[1] for r in runs} != {8} or rounds_run != 8):
@@ -3264,13 +3987,8 @@ def main(argv: list[str]) -> int:
                  launches=counted)
 
     # -- the cut training set ---------------------------------------
-    run_cfg = parse_config([
-        "--train_size", str(TRAIN_SIZE), "--test_size", "2000",
-        "--data_dir", str(data_dir)])
-    t0 = time.perf_counter()
-    train_batches = list(diffusion_training.build_dataset(
-        run_cfg).train_data())
-    emit(phase="train_split", seconds=time.perf_counter() - t0,
+    (train_batches, _), timing = splits.get("train")
+    emit(phase="train_split", **timing,
          instances=sum(int(b.n_graphs) for b in train_batches),
          batches=len(train_batches), cut_from=100000,
          note="data quantity is cut, not width or depth")
@@ -3306,33 +4024,6 @@ def main(argv: list[str]) -> int:
                                 generator=gen, device=dev))
     leaves = [p for m in params.values() for k in ("w", "b")
               for p in m[k]]
-
-    class PinnedHeadOrder:
-        """`_head_weighted_loss` with the rank order of a reference run:
-        `record()` sorts as the model does and keeps each round's order,
-        `replay()` weights the heads in the kept order."""
-
-        def __init__(self):
-            self.orders, self.at = [], None
-
-        def record(self):
-            self.orders, self.at = [], None
-
-        def replay(self):
-            self.at = 0
-
-        def __call__(self, per_graph_loss, logit_maps):
-            costs = torch.square(torch.arange(
-                1, logit_maps + 1, dtype=torch.float32, device=dev))
-            if self.at is None:
-                order = torch.argsort(per_graph_loss, dim=-1,
-                                      descending=True)
-                self.orders.append(order)
-            else:
-                order = self.orders[self.at]
-                self.at += 1
-            ranked = torch.gather(per_graph_loss, -1, order)
-            return torch.sum(ranked * costs) / torch.sum(costs)
 
     def loss_and_grads(plans, rounds):
         for p in leaves:
@@ -3486,7 +4177,7 @@ def main(argv: list[str]) -> int:
              steps_per_s=TRAIN_STEPS / wall, wall_s=wall,
              peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
              launches=launched,
-             loss_every_10=[float(x) for x in losses[::10]])
+             losses=[float(x) for x in losses])
         if not np.isfinite(losses).all():
             raise RuntimeError(f"{name}: non-finite loss")
         if not last < LOSS_FALL_FACTOR * first:
@@ -3528,12 +4219,12 @@ def main(argv: list[str]) -> int:
     # the runs' files go under the checkout and are removed afterwards
     train_dir = ROOT / "runs" / "chip_smoke"
     shutil.rmtree(train_dir, ignore_errors=True)
-    common_argv = ["--train_size", str(TRAIN_SIZE), "--test_size", "2000",
-                   "--data_dir", str(data_dir), "--train_dir",
-                   str(train_dir), "--device", str(dev), "--ckpt_every",
-                   "50"]
+    common_argv = train_argv(data_dir) + [
+        "--train_dir", str(train_dir), "--device", str(dev), "--ckpt_every",
+        str(SCRIPT_STEPS)]
     script_launches = {"lit_to_clause": 0, "clause_to_lit": 0}
-    for layout, n_steps in (("dense", 50), ("flat", 50)):
+    n_steps = SCRIPT_STEPS
+    for layout in ("dense", "flat"):
         argv_l = common_argv + [
             "--dense", "true" if layout == "dense" else "false",
             "--label", f"smoke_{layout}", "--eval_every", str(n_steps)]
@@ -3549,8 +4240,8 @@ def main(argv: list[str]) -> int:
             for p in (run_dir / "ckpt").iterdir())]
         # a second run restores the newest checkpoint and trains on
         final2 = diffusion_training.main(
-            argv_l + ["--train_steps", str(n_steps + 10), "--restore",
-                      str(run_dir / "ckpt")])
+            argv_l + ["--train_steps", str(n_steps + SCRIPT_RESTORE_STEPS),
+                      "--restore", str(run_dir / "ckpt")])
         launched = dict(segsum.LAUNCHES)
         log = [json.loads(ln) for ln in (
             Path(final2["run_dir"]) / "train_log.jsonl"
@@ -3570,10 +4261,9 @@ def main(argv: list[str]) -> int:
              resumed_to=resumed, launches=launched,
              npz_total_accuracy=res["total_accuracy"],
              files=sorted(p.name for p in run_dir.iterdir()))
-        if ckpts != [f"ckpt_{n_steps - 50 * i}.npz" for i in
-                     reversed(range(n_steps // 50))][-3:]:
+        if ckpts != [f"ckpt_{n_steps}.npz"]:
             raise RuntimeError(f"train_script: checkpoints {ckpts}")
-        if resumed != [n_steps + 10]:
+        if resumed != [n_steps + SCRIPT_RESTORE_STEPS]:
             raise RuntimeError(f"train_script: resumed to {resumed}")
         if not np.isfinite(final["diag_loss"]) or \
                 not 0.0 <= res["total_accuracy"] <= 1.0:
@@ -3614,14 +4304,12 @@ def main(argv: list[str]) -> int:
             sync()
             walls.append(time.perf_counter() - t0)
         wall = min(walls[1:])
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             state, _ = run(state)
             sync()
         step_k = cuda_kernels(prof)
         # the forward alone, to split the segsum time of the step
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof_f:
+        with profile(activities=activities) as prof_f:
             g = torch.Generator(device=dev)
             g.manual_seed(3)
             tree_f = {m: {k: [p.detach().requires_grad_(True)
@@ -3656,12 +4344,14 @@ def main(argv: list[str]) -> int:
             profile_train_step(name, layout, bf16)
     train_launches = launches_of
 
-    uni_launches = uniformity_phase(dev, data_dir, sync, busy_seconds)
+    uni_launches = uniformity_phase(dev, data_dir, sync, busy_seconds,
+                                    splits)
     anf = anf_phase(dev, data_dir, tools)
     graphs_phase(dev, data_dir, tools)
     generic = main_phase(dev, data_dir, tools, eval_batches)
     models = models_phase(dev, data_dir, tools)
     studies = studies_phase(dev, data_dir, tools)
+    multi_rows = multi_phase(dev, data_dir, tools)
 
     # one row per kernel: times at the sampler's shapes, launches of the
     # sampler run; the solving eval's and the training paths' launches and
@@ -3695,7 +4385,7 @@ def main(argv: list[str]) -> int:
         row["launches_anf_structure"] = studies[
             "launches_anf_structure"].get(row["name"].split(":")[1], 0)
     print(json.dumps({"kernels": kernels + anf["kernels"] + edge_rows +
-                      studies["rows"]}), flush=True)
+                      studies["rows"] + multi_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

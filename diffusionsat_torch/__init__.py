@@ -13,10 +13,13 @@ checkpoints and the ``diffusion_training`` script), the uniformity battery
 and the bank measurement, the ANF path (``anf_eval``, ``anf_training``),
 many steps per dispatch as CUDA graphs (``cuda_graphs``, ``--mega_steps``),
 the bench (``bench``), the generic driver ``main`` with its registry and
-harness, and every model of the registry (QuerySAT, ANFSAT, NeuroSAT,
-NeuroCore, SimpleNeuroSAT, QuerySATLit, AttentionSAT). The flat layout's
-segment sums, forward and backward, run on a CUDA kernel
-(``csrc/segsum.cu``).
+harness, every model of the registry (QuerySAT, ANFSAT, NeuroSAT,
+NeuroCore, SimpleNeuroSAT, QuerySATLit, AttentionSAT), the TSP stack,
+hyperopt and the ANF studies, and multi-device execution over
+``torch.distributed`` (``parallel``: data parallelism, clause-partitioned
+graph parallelism with the all-reduce or the halo exchange, the sharded
+sampler chain). The flat layout's segment sums, forward and backward, run
+on a CUDA kernel (``csrc/segsum.cu``).
 """
 
 __version__ = "0.1.0"

@@ -111,8 +111,8 @@ class RunConfig:
     # high (TF32 operand rounding) | default (bf16 operands with f32
     # accumulation); see ops/dense_ops.py
     incidence_precision: str = "default"
-    # data-parallel devices; the port trains on one (ROADMAP Queue 1,
-    # item 7): a value above 1 raises
+    # data-parallel ranks started by the training script: one card each
+    # on the card (NCCL), or gloo ranks on the CPU with --device cpu
     n_devices: int = 1
 
     seed: int = 0

@@ -31,6 +31,17 @@ carry), each group is cut into stacks of at most N, and each stack is one
 CUDA graph replay on the card (`train/loop.make_scanned_train_step_for`).
 Other streams print the TPU package's warning and run one step a call.
 
+`--n_devices N` (N > 1) trains data-parallel on N ranks started from this
+command (`parallel/mesh.launch`): on the card one card a rank over NCCL
+(fewer visible cards raise `SystemExit`), with `--device cpu` N gloo ranks
+on the CPU. The data set is built once, here, before the ranks start; the
+ranks read its cache. As in the TPU package's script, a hybrid dense +
+flat stream keeps its majority layout, the batches are stacked N at a time
+by shape (`parallel/dp.stacked_stream`, each rank taking its row onto its
+device once), `--mega_steps` is ignored and `--self_supervised` is
+refused. Rank 0 alone evaluates, writes the log, TensorBoard, checkpoints
+and `params.npz`; the other ranks print nothing.
+
 The run directory gets `config.json`, `train_log.jsonl`, `tb/`, `ckpt/`
 and, at the end, `params.npz`, the portable params file that the samplers
 and evals of both packages load.
@@ -38,10 +49,13 @@ and evals of both packages load.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import sys
+from collections import Counter
 
 import numpy as np
 import torch
@@ -104,10 +118,6 @@ from diffusionsat_torch.uniformity.reweight import attach_logit_table
 
 
 def _check_ported(cfg: RunConfig) -> None:
-    if cfg.n_devices > 1:
-        raise NotImplementedError(
-            "--n_devices > 1 waits for the ROADMAP Queue 1 item 7 "
-            "'Multi-device'")
     _flat_backend()
 
 
@@ -191,18 +201,119 @@ def main(argv=None):
     cfg = parse_config(argv)
     _check_ported(cfg)
     dev = resolve_device(cfg.device)
-    if cfg.eager:
-        torch.autograd.set_detect_anomaly(True)
     if cfg.incidence_precision not in dense_ops.PRECISIONS:
         raise SystemExit(f"--incidence_precision must be one of "
                          f"{dense_ops.PRECISIONS}")
+    if cfg.n_devices > 1:
+        return _launch_data_parallel(cfg, dev)
+    if cfg.eager:
+        torch.autograd.set_detect_anomaly(True)
     # the dense incidence products take the run's precision for the length
     # of the run only
     with dense_ops.incidence_precision(cfg.incidence_precision):
         return _run(cfg, dev)
 
 
-def _run(cfg: RunConfig, dev: torch.device) -> dict:
+def _launch_data_parallel(cfg: RunConfig, dev: torch.device) -> dict:
+    """Build the data set once, start `cfg.n_devices` ranks and return rank
+    0's final record."""
+    from diffusionsat_torch.parallel.mesh import launch
+
+    if cfg.self_supervised:
+        raise SystemExit("--self_supervised is single-device for now "
+                         "(the DP step wraps the plain supervised loss)")
+    n = cfg.n_devices
+    if dev.type == "cuda":
+        if torch.cuda.device_count() < n:
+            raise SystemExit(
+                f"--n_devices {n} but only {torch.cuda.device_count()} "
+                "devices visible (pass --device cpu for N ranks on the CPU)")
+        backend, devices = "nccl", None
+    else:
+        backend, devices = "gloo", ["cpu"] * n
+    # the splits are generated (or found) here; the ranks read the cache
+    dataset = build_dataset(cfg)
+    dataset.train_data()
+    dataset.test_data()
+    del dataset
+    run_dir = cfg.run_dir()
+    return launch(_data_parallel_rank, n, backend, devices, cfg,
+                  run_dir)[0]
+
+
+def _data_parallel_rank(ctx, cfg: RunConfig, run_dir) -> dict:
+    """One rank of a data-parallel run: rank 0 prints, the others are
+    quiet."""
+    mesh = ctx.mesh(n_data=ctx.world)
+    dev = resolve_device(mesh.device)
+    if cfg.eager:
+        torch.autograd.set_detect_anomaly(True)
+    quiet = contextlib.redirect_stdout(io.StringIO()) if ctx.rank else \
+        contextlib.nullcontext()
+    with quiet, dense_ops.incidence_precision(cfg.incidence_precision):
+        return _run(cfg, dev, mesh, run_dir)
+
+
+def _data_parallel_stream(cfg: RunConfig, model_cfg, optimizer, mesh,
+                          batches: list[SatBatch]):
+    """The DP step and its stream over the training batches, as the TPU
+    package's script builds them: the layout's batches (a hybrid stream
+    keeps its majority layout), stacked `n_devices` at a time by shape,
+    each rank taking its row onto its device once (flat rows with their
+    kernel plans). Returns (train_step, stream, the first batch kept)."""
+    from diffusionsat_torch.parallel import dp
+    from diffusionsat_torch.train.loop import build_plans
+
+    dp_batches = list(batches)
+    if cfg.mega_steps > 1:
+        print("WARNING: --mega_steps needs a dense-only, "
+              "single-device, supervised stream; ignored", flush=True)
+    if cfg.dense:
+        try:
+            dense_batches, flat_rest = _split_dense(batches)
+            dp_batches = dense_batches + flat_rest
+            if flat_rest:
+                print(f"hybrid dispatch: {len(dense_batches)} dense + "
+                      f"{len(flat_rest)} flat batches (cutoff "
+                      f"{os.environ.get('DSAT_DENSE_MAX_VARS', '128')} "
+                      "vars)", flush=True)
+            shapes = sorted({(d.G, d.Vg, d.Cg) for d in dense_batches})
+            print(f"dense layout shapes (G, Vg, Cg): {shapes}", flush=True)
+        except ValueError as e:
+            print(f"dense layout unavailable ({e}); flat path", flush=True)
+    kinds = Counter(type(b).__name__ for b in dp_batches)
+    if len(kinds) > 1:
+        majority = kinds.most_common(1)[0][0]
+        dp_batches = [b for b in dp_batches
+                      if type(b).__name__ == majority]
+        print(f"WARNING: hybrid stream under DP; keeping only the "
+              f"{majority} batches ({len(dp_batches)})", flush=True)
+    # the DP apply follows the surviving batches' layout
+    dense = isinstance(dp_batches[0], DenseSatBatch)
+    step = dp.make_dp_train_step(
+        model_cfg, optimizer, mesh,
+        apply_fn=query_sat_dense_apply if dense else query_sat_apply)
+
+    def take(group):
+        row = dp.shard_stacked_batch(group, mesh)
+        plans = build_plans(row.to("cpu"))
+        return row, None if plans is None else plans.to(mesh.device)
+
+    stream = dp.stacked_stream(dp_batches, cfg.n_devices, seed=cfg.seed,
+                               take=take)
+    print(f"data-parallel over {cfg.n_devices} devices", flush=True)
+
+    def train_step(state, item):
+        return step(state, *item)
+
+    return train_step, stream, dp_batches[0]
+
+
+def _run(cfg: RunConfig, dev: torch.device, mesh=None,
+         run_dir=None) -> dict:
+    """The run on one device, or as one rank of a data-parallel `mesh`
+    (into `run_dir`, which rank 0 alone writes)."""
+    root = mesh is None or mesh.rank == 0
     model_cfg = QuerySATConfig(
         feature_maps=cfg.feature_maps, query_maps=cfg.query_maps,
         train_rounds=cfg.train_rounds, test_rounds=cfg.test_rounds,
@@ -262,13 +373,16 @@ def _run(cfg: RunConfig, dev: torch.device) -> dict:
     state = TrainState(params=params, opt_state=optimizer.init(params),
                        step=0, generator=generator)
 
-    run_dir = cfg.run_dir()
-    run_dir.mkdir(parents=True, exist_ok=True)
-    (run_dir / "config.json").write_text(
-        json.dumps(dataclasses.asdict(cfg), indent=1, default=str))
+    run_dir = cfg.run_dir() if run_dir is None else run_dir
+    if root:
+        run_dir.mkdir(parents=True, exist_ok=True)
+        (run_dir / "config.json").write_text(
+            json.dumps(dataclasses.asdict(cfg), indent=1, default=str))
     ckpt_dir = cfg.restore if cfg.restore else run_dir / "ckpt"
-    mgr = CheckpointManager(ckpt_dir, max_to_keep=cfg.ckpt_count)
-    restored = mgr.restore(state)
+    # every rank restores the same checkpoint; rank 0 alone writes
+    mgr = CheckpointManager(ckpt_dir, max_to_keep=cfg.ckpt_count) \
+        if root or cfg.restore else None
+    restored = None if mgr is None else mgr.restore(state)
     if restored is not None:
         state = restored
         print(f"Restored from step {state.step}")
@@ -287,13 +401,20 @@ def _run(cfg: RunConfig, dev: torch.device) -> dict:
     train_step = None
     diag_apply = query_sat_apply
     mega_chunks = None
-    if cfg.dense:
+    if mesh is not None:
+        train_step, data_stream, diag_batch = _data_parallel_stream(
+            cfg, model_cfg, optimizer, mesh, train_data.batches)
+        dense = isinstance(diag_batch, DenseSatBatch)
+        diag_apply = query_sat_dense_apply if dense else query_sat_apply
+        diag_plans = None if dense else plan_batches([diag_batch], dev)[0][1]
+        diag_batch = diag_batch.to(dev)
+    elif cfg.dense:
         try:
             dense_batches, flat_rest = _split_dense(train_data.batches)
         except ValueError as e:
             print(f"dense layout unavailable ({e}); flat path", flush=True)
             cfg = dataclasses.replace(cfg, dense=False)
-    if cfg.dense:
+    if mesh is None and cfg.dense:
         if cfg.mega_steps > 1 and not cfg.self_supervised and not flat_rest:
             # N-step chunks of same-shape batches, stacked on the host
             mega_chunks = _mega_chunks(dense_batches, cfg.mega_steps)
@@ -345,7 +466,7 @@ def _run(cfg: RunConfig, dev: torch.device) -> dict:
                       f"{len(flat_rest)} flat batches", flush=True)
         shapes = sorted({(d.G, d.Vg, d.Cg) for d in dense_batches})
         print(f"dense layout shapes (G, Vg, Cg): {shapes}", flush=True)
-    else:
+    elif mesh is None:
         if cfg.mega_steps > 1:
             print("WARNING: --mega_steps needs a dense-only, "
                   "single-device, supervised stream; ignored", flush=True)
@@ -358,17 +479,18 @@ def _run(cfg: RunConfig, dev: torch.device) -> dict:
 
         def train_step(state, batch):
             return planned(state, batch, plans_of[id(batch)])
-    train_stream = PackedBatches(stream_batches, seed=cfg.seed)
-    data_stream = train_stream.repeat_shuffled()
+    if mesh is None:
+        train_stream = PackedBatches(stream_batches, seed=cfg.seed)
+        data_stream = train_stream.repeat_shuffled()
+        # under mega-steps the stream holds stacked chunks; diagnostics run
+        # on one batch
+        diag_batch = dense_batches[0] if mega_chunks is not None \
+            else train_stream.batches[0]
+        diag_plans = None if isinstance(diag_batch, DenseSatBatch) \
+            else plans_of[id(diag_batch)]
 
     # periodic in-model diagnostics on a fixed train batch
     diag_fn = make_diagnostics_step(model_cfg, diag_apply, device=dev)
-    # under mega-steps the stream holds stacked chunks; diagnostics run on
-    # one batch
-    diag_batch = dense_batches[0] if mega_chunks is not None \
-        else train_stream.batches[0]
-    diag_plans = None if isinstance(diag_batch, DenseSatBatch) \
-        else plans_of[id(diag_batch)]
 
     # the eval batches, flat with their kernel plans, on the device once
     eval_batches = plan_batches(list(test_data)[:8], dev)
@@ -387,8 +509,10 @@ def _run(cfg: RunConfig, dev: torch.device) -> dict:
                             plans=diag_plans))
         return vals
 
-    tb = TBWriter(run_dir / "tb")
-    tb.hparams(dataclasses.asdict(cfg))
+    tb = None
+    if root:
+        tb = TBWriter(run_dir / "tb")
+        tb.hparams(dataclasses.asdict(cfg))
 
     # with mega-steps each call advances up to `mega_div` real steps
     # (trailing partial chunks fewer, and at least one): `remaining` calls
@@ -400,10 +524,14 @@ def _run(cfg: RunConfig, dev: torch.device) -> dict:
     state = train(
         state, train_step, data_stream, steps=remaining,
         target_step=cfg.train_steps,
-        eval_fn=eval_fn, eval_every=max(1, cfg.eval_every // mega_div),
-        checkpoint_fn=mgr.save,
+        eval_fn=eval_fn if root else None,
+        eval_every=max(1, cfg.eval_every // mega_div),
+        checkpoint_fn=mgr.save if root else None,
         ckpt_every=max(1, cfg.ckpt_every // mega_div),
-        log_file=run_dir / "train_log.jsonl", tb_writer=tb)
+        log_file=run_dir / "train_log.jsonl" if root else None,
+        tb_writer=tb)
+    if not root:
+        return {}
     mgr.save(state)
     final = eval_fn(state)
     tb.close()

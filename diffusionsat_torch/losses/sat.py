@@ -22,8 +22,10 @@ from diffusionsat_torch.graph.batch import SatBatch
 from diffusionsat_torch.ops.graph_ops import (
     clause_segment_sum,
     clause_to_lit,
+    complete_literals,
     lit_to_clause,
 )
+from diffusionsat_torch.parallel.comm import all_reduce_min
 from diffusionsat_torch.ops.segsum import (
     BatchPlans,
     aggregations,
@@ -64,7 +66,8 @@ def softplus_loss(logits: torch.Tensor, batch: SatBatch, power: float = 1.0,
 
 
 def softplus_loss_and_grad(logits: torch.Tensor, batch: SatBatch,
-                           plans: BatchPlans | None = None
+                           plans: BatchPlans | None = None, group=None,
+                           halo=None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """(softplus_loss per clause, gradient of its sum wrt logits) in closed
     form:
@@ -74,7 +77,9 @@ def softplus_loss_and_grad(logits: torch.Tensor, batch: SatBatch,
 
     i.e. one clause->literal aggregation of the clause values weighted by
     the literal sigmoid. With `plans` both aggregations run on the segsum
-    kernel.
+    kernel. For a clause shard (`group`, and a `halo` view or none) the
+    clause -> literal sum is completed over the group, after the planned
+    per-shard sum too.
     """
     logits = _as_2d(logits)
     literals = literal_concat(logits)
@@ -87,6 +92,7 @@ def softplus_loss_and_grad(logits: torch.Tensor, batch: SatBatch,
         clauses_val = torch.exp(-lit_to_clause(batch, sp))
         clauses_val = clauses_val * batch.clause_mask[:, None]
         back = clause_to_lit(batch, clauses_val)              # [2V, K]
+    back = complete_literals(back, group, halo)
     per_lit = -back * torch.sigmoid(literals)                 # d softplus
     V = batch.V
     grad = per_lit[:V] - per_lit[V:]                          # +/- signs
@@ -232,18 +238,25 @@ def clause_sat_indicator(logits: torch.Tensor, batch: SatBatch,
 
 
 def is_batch_sat(logits: torch.Tensor, batch: SatBatch,
-                 plans: BatchPlans | None = None) -> torch.Tensor:
-    """0-d 1.0 iff every real clause is satisfied by the rounded assignment.
-    Padded clauses count as satisfied."""
+                 plans: BatchPlans | None = None,
+                 group=None) -> torch.Tensor:
+    """0-d 1.0 iff every real clause is satisfied by the rounded assignment
+    (of every clause shard of `group`). Padded clauses count as
+    satisfied."""
     sat = clause_sat_indicator(logits, batch, plans)
     sat = torch.where(batch.clause_mask[:, None] > 0, sat, 1.0)
-    return torch.min(sat)
+    out = torch.min(sat)
+    if group is not None:
+        out = all_reduce_min(out, group)
+    return out
 
 
-def is_graph_sat(logits: torch.Tensor, batch: SatBatch) -> torch.Tensor:
-    """[G, K] per-graph SAT indicator."""
+def is_graph_sat(logits: torch.Tensor, batch: SatBatch,
+                 group=None) -> torch.Tensor:
+    """[G, K] per-graph SAT indicator (over every clause shard of
+    `group`)."""
     sat = clause_sat_indicator(logits, batch)               # [C, K]
-    sat_in_g = clause_segment_sum(batch, sat)               # [G, K]
+    sat_in_g = clause_segment_sum(batch, sat, group)        # [G, K]
     total_in_g = batch.n_clauses_per_graph[:, None]
     return torch.clamp(sat_in_g + 1 - total_in_g, 0.0, 1.0) * \
         batch.graph_mask[:, None]

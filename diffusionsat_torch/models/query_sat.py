@@ -26,6 +26,14 @@ caller differentiates the returned loss wrt the params), runs
   checkpoints each round, "dots" keeps the matrix products' outputs and
   recomputes the rest. The per-round noise is drawn outside the round body
   and passed in, so a recomputed round sees the same noise.
+- With a process `group` the batch is one clause shard of a formula batch
+  (`parallel/graph_partition.py`): clause-side work is local, and the
+  literal aggregates, per-graph clause sums and the SAT check are
+  completed over the group where the TPU package puts its collectives,
+  after the planned per-shard sums too. With a `halo` view
+  (`parallel/halo.py`) the literal aggregates exchange only the rows the
+  shards share, and the supervised per-graph losses are owner-masked
+  before one small all-reduce. Every rank then holds the whole loss.
 """
 
 from __future__ import annotations
@@ -60,12 +68,14 @@ from diffusionsat_torch.ops.graph_ops import (
     clause_degrees,
     clause_segment_sum,
     clause_to_lit,
+    complete_literals,
     graph_gather_vars,
     lit_to_clause,
     literal_degrees,
     var_segment_sum,
 )
 from diffusionsat_torch.ops.lowp import weak
+from diffusionsat_torch.parallel.comm import all_reduce_sum, balance_copies
 from diffusionsat_torch.ops.segsum import (
     BatchPlans,
     plan_clause_to_lit,
@@ -143,10 +153,15 @@ class QuerySATConfig:
         return cls(**kw)
 
 
-def _check_ported(cfg: QuerySATConfig, axis_name, halo):
-    if axis_name is not None or halo is not None:
+def _check_ported(cfg: QuerySATConfig, group, halo):
+    if halo is not None and group is None:
+        raise ValueError("a halo view needs the process group of its shards")
+    if group is not None and not cfg.supervised and cfg.use_linear_loss:
+        # linear_loss's literal regularizer is replicated: shards would each
+        # count it once
         raise NotImplementedError(
-            "sharded execution waits for the ROADMAP item 'Multi-device'")
+            "sharded execution supports supervised and clause-partitioned "
+            "unsupervised losses; linear_loss is not owner-maskable")
     if cfg.dtype != torch.float32:
         raise ValueError("states are float32; the reduced-precision modes "
                          "are block_bf16 and compute_dtype")
@@ -253,8 +268,8 @@ def query_sat_apply(params: dict, cfg: QuerySATConfig, batch: SatBatch,
                     early_exit: bool = False,
                     plans: BatchPlans | None = None,
                     round_noise: torch.Tensor | None = None,
-                    axis_name: str | None = None,
-                    halo: dict | None = None,
+                    group=None,
+                    halo=None,
                     device: str | torch.device = "cuda"):
     """Run the recurrent loop. Returns (out_logits [V,1], loss, steps, aux).
 
@@ -270,23 +285,30 @@ def query_sat_apply(params: dict, cfg: QuerySATConfig, batch: SatBatch,
     `training=True` records the autograd graph, whatever the caller's grad
     mode; inference records none. `rounds` defaults to `cfg.train_rounds`
     when training and to `cfg.test_rounds` otherwise.
+
+    `group` (a process group) runs the batch as a clause shard, `halo` (a
+    `parallel/halo.HaloView` of this rank) with the halo exchange; every
+    rank of the group must make the same draws (the same generator state,
+    or the same injected inputs). A sharded loop runs eagerly.
     """
-    _check_ported(cfg, axis_name, halo)
+    _check_ported(cfg, group, halo)
     with torch.set_grad_enabled(training):
         return _query_sat_apply(
             params, cfg, batch, generator, training, labels, noise_scale,
             noisy_num, denoised_num, rounds, early_exit, plans, round_noise,
-            device)
+            group, halo, device)
 
 
 def _query_sat_apply(params, cfg, batch, generator, training, labels,
                      noise_scale, noisy_num, denoised_num, rounds, early_exit,
-                     plans, round_noise, device):
+                     plans, round_noise, group, halo, device):
     dev = resolve_device(device)
     batch = batch.to(dev)
     params = params_to(params, dev)
     if plans is not None:
         plans = plans.to(dev)
+    if halo is not None:
+        halo = halo.to(dev)
     mcfgs = cfg.mlp_configs()
     V = batch.V
     K, Q = cfg.logit_maps, cfg.query_maps
@@ -314,7 +336,7 @@ def _query_sat_apply(params, cfg, batch, generator, training, labels,
                                          noisy_num, denoised_num, generator)
 
     # degree weights
-    lit_degree = literal_degrees(batch)                        # [2V, 1]
+    lit_degree = literal_degrees(batch, group)                 # [2V, 1]
     degree_weight = torch.rsqrt(torch.clamp(lit_degree, min=1.0))
     var_degree_weight = 4.0 * torch.rsqrt(
         torch.clamp(lit_degree[:V] + lit_degree[V:], min=1.0))  # [V, 1]
@@ -359,20 +381,27 @@ def _query_sat_apply(params, cfg, batch, generator, training, labels,
 
         def c2l(x):
             if plans is not None:
-                return plan_clause_to_lit(x, plans)
-            return clause_to_lit(batch, x)
+                x = plan_clause_to_lit(x, plans)
+            else:
+                x = clause_to_lit(batch, x)
+            return complete_literals(x, group, halo)
 
         def round_body(carry, noise4):
             (variables, clause_state, last_logits, best_map_vars, loss_sum,
              loss_count, steps, done) = carry
+            if group is not None:
+                # every rank's copy of the state gets the copies' mean
+                # cotangent (parallel/comm.balance_copies)
+                variables = halo.balance_copies(variables, group) \
+                    if halo is not None else balance_copies(variables, group)
             v1 = torch.cat([variables, noise4, noisy_labels], dim=-1)
 
             # query and the closed-form gradient of the clause loss wrt it:
             # first-order ops, which the outer backward differentiates through
             query = mlp_apply(params["variables_query"],
                               mcfgs["variables_query"][0], v1, compute_dtype=cdt)
-            clauses_loss, grads = softplus_loss_and_grad(query, batch,
-                                                         plans=plans)
+            clauses_loss, grads = softplus_loss_and_grad(
+                query, batch, plans=plans, group=group, halo=halo)
             variables_grad = grads * var_degree_weight
             clauses_loss = clauses_loss * 4.0
 
@@ -392,8 +421,8 @@ def _query_sat_apply(params, cfg, batch, generator, training, labels,
                                     compute_dtype=cdt)
 
             variables_loss_all = clause_data[:, :Q]
-            new_clause_value = pair_norm_clauses(clause_data[:, Q:], batch) * \
-                0.25
+            new_clause_value = pair_norm_clauses(
+                clause_data[:, Q:], batch, group=group) * 0.25
             new_clause_state = new_clause_value + weak(0.1, clause_state) * clause_state.float()
 
             # variable update
@@ -416,6 +445,11 @@ def _query_sat_apply(params, cfg, batch, generator, training, labels,
                 per_var_loss = per_var_loss * batch.var_mask[:, None]
                 per_graph_loss = var_segment_sum(batch, per_var_loss) * \
                     inv_var_counts[:, None]
+                if halo is not None:
+                    # a graph's loss holds only on its owner shard (the
+                    # others may miss rows outside their closure)
+                    per_graph_loss = all_reduce_sum(
+                        per_graph_loss * halo.owner_mask[:, None], group)
             elif cfg.use_linear_loss:
                 # a scalar loss, spread evenly over the real graphs and heads
                 per_graph_loss = torch.zeros((batch.G, K), device=dev) + \
@@ -424,7 +458,8 @@ def _query_sat_apply(params, cfg, batch, generator, training, labels,
                 per_graph_loss = per_graph_loss * batch.graph_mask[:, None]
             else:
                 per_clause_loss = softplus_mixed_loss(logits, batch)
-                per_graph_loss = clause_segment_sum(batch, per_clause_loss)
+                per_graph_loss = clause_segment_sum(batch, per_clause_loss,
+                                                    group)
                 per_graph_loss = torch.sqrt(per_graph_loss + 1e-6) - \
                     torch.sqrt(torch.full((), 1e-6, device=dev))
 
@@ -435,7 +470,7 @@ def _query_sat_apply(params, cfg, batch, generator, training, labels,
             new_best_vars = graph_gather_vars(
                 batch, best_map[:, None])[:, 0].to(torch.int32)
             out_logits = torch.gather(logits, 1, new_best_vars.long()[:, None])
-            sat = is_batch_sat(out_logits, batch) >= 1.0
+            sat = is_batch_sat(out_logits, batch, group=group) >= 1.0
 
             # early exit by masking: the loss of the round that satisfies the
             # batch is accumulated, but the 0.2/0.8 blend is skipped
@@ -479,7 +514,7 @@ def _query_sat_apply(params, cfg, batch, generator, training, labels,
     early_exit = early_exit and not training
     collect = cfg.collect_round_stats and not early_exit
     round_stats: list[dict] = []
-    if not training and not collect and rounds > 0 and \
+    if not training and not collect and rounds > 0 and group is None and \
             cuda_graphs.graphs_enabled(dev):
         # one CUDA graph of the round, replayed `rounds` times
         def make_step(ctx):

@@ -52,9 +52,11 @@ def pair_norm_vars(x: torch.Tensor, batch: SatBatch, epsilon: float = 1e-6
 
 
 def pair_norm_clauses(x: torch.Tensor, batch: SatBatch,
-                      epsilon: float = 1e-6) -> torch.Tensor:
-    """PairNorm over clause nodes."""
-    sums = clause_segment_sum(batch, x * batch.clause_mask[:, None])
+                      epsilon: float = 1e-6, group=None) -> torch.Tensor:
+    """PairNorm over clause nodes. For a clause shard (`group`) the
+    per-graph sums are completed over the group; the batch's per-graph
+    clause counts are the global ones."""
+    sums = clause_segment_sum(batch, x * batch.clause_mask[:, None], group)
     counts = torch.clamp(batch.n_clauses_per_graph, min=1.0)[:, None]
     mean = graph_gather_clauses(batch, sums / counts)
     return _pair_norm(x, mean, epsilon)

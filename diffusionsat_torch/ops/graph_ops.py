@@ -20,6 +20,14 @@ eager step:
 
 The planned SpMM pair that runs on the hand-written kernel is
 `ops/segsum.py`.
+
+Clause-sharded execution (`parallel/graph_partition.py`, `halo.py`): with
+a process `group` the batch holds one shard's clauses and the literal side
+whole, so the literal and per-graph sums over clauses are partial on each
+rank. `clause_to_lit`, `literal_degrees` and `clause_segment_sum` then
+complete them over the group where the TPU package puts its `psum`, or,
+given a halo view, exchange only the literal rows the shards share
+(`complete_literals`).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from diffusionsat_torch.graph.batch import SatBatch
+from diffusionsat_torch.parallel.comm import all_reduce_sum
 
 # rows a thread sums in the first pass of a segment sum on the card
 BLOCK_ROWS = 16
@@ -106,17 +115,36 @@ def lit_to_clause(batch: SatBatch, lit_features: torch.Tensor
     return segment_sum(gathered, batch.edge_clause_c, batch.C)
 
 
-def clause_to_lit(batch: SatBatch, clause_features: torch.Tensor
-                  ) -> torch.Tensor:
-    """out[lit] = sum_{c containing lit} x[c]: [C, F] -> [2V, F]."""
+def complete_literals(partial: torch.Tensor, group=None,
+                      halo=None) -> torch.Tensor:
+    """A clause shard's partial literal aggregate [2V, F] completed over
+    `group`: summed whole on every rank, or, with a halo view
+    (parallel/halo.HaloView), summed on the rows this shard shares with
+    others (the rows outside its closure stay partial). Without a group it
+    is returned as it is."""
+    if group is None:
+        return partial
+    if halo is not None:
+        return halo.exchange(partial, group)
+    return all_reduce_sum(partial, group)
+
+
+def clause_to_lit(batch: SatBatch, clause_features: torch.Tensor,
+                  group=None, halo=None) -> torch.Tensor:
+    """out[lit] = sum_{c containing lit} x[c]: [C, F] -> [2V, F];
+    completed over `group` (`complete_literals`) for a clause shard."""
     gathered = gather_rows(clause_features, batch.edge_clause_l)
     gathered = gathered * batch.edge_mask_l[:, None]
-    return segment_sum(gathered, batch.edge_lit_l, 2 * batch.V)
+    return complete_literals(
+        segment_sum(gathered, batch.edge_lit_l, 2 * batch.V), group, halo)
 
 
-def literal_degrees(batch: SatBatch) -> torch.Tensor:
-    """[2V, 1] count of clauses each literal appears in."""
+def literal_degrees(batch: SatBatch, group=None) -> torch.Tensor:
+    """[2V, 1] count of clauses each literal appears in (summed over
+    `group` for a clause shard)."""
     deg = segment_sum(batch.edge_mask_l, batch.edge_lit_l, 2 * batch.V)
+    if group is not None:
+        deg = all_reduce_sum(deg, group)
     return deg[:, None]
 
 
@@ -134,10 +162,13 @@ def var_segment_sum(batch: SatBatch, var_features: torch.Tensor
     return out[:batch.G]
 
 
-def clause_segment_sum(batch: SatBatch, clause_features: torch.Tensor
-                       ) -> torch.Tensor:
-    """Per-graph sum over clauses: [C, F] -> [G, F]."""
+def clause_segment_sum(batch: SatBatch, clause_features: torch.Tensor,
+                       group=None) -> torch.Tensor:
+    """Per-graph sum over clauses: [C, F] -> [G, F] (summed over `group`
+    for a clause shard)."""
     out = segment_sum(clause_features, batch.clause_graph, batch.G + 1)
+    if group is not None:
+        out = all_reduce_sum(out, group)
     return out[:batch.G]
 
 

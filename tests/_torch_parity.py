@@ -174,3 +174,36 @@ def rounds_of(cfg, training):
     if hasattr(cfg, "rounds"):
         return cfg.rounds
     return cfg.train_rounds if training else cfg.test_rounds
+
+
+# -- multi-device ---------------------------------------------------------
+
+GRAD_TOL = 1e-5
+
+
+def np_tree(params):
+    return jax.tree.map(np.asarray, params)
+
+
+def leaf_names(tree):
+    return [jax.tree_util.keystr(p)
+            for p, _ in jax.tree_util.tree_flatten_with_path(tree)[0]]
+
+
+def round_off_leaf(names):
+    """QuerySAT's and ANFSAT's last `update_gate` bias: it feeds the
+    variables' PairNorm, which subtracts each graph's mean, so its true
+    gradient is zero and both packages compute f32 round-off."""
+    return max(n for n in names if n.startswith("['update_gate']['b']"))
+
+
+def assert_grads_close(got, want, names, tol=GRAD_TOL):
+    """Every gradient within `tol` of its tensor's largest entry (the
+    round-off leaf within `tol` of the largest entry of all tensors)."""
+    want = [np.asarray(w) for w in want]
+    top = max(np.abs(w).max() for w in want)
+    assert len(got) == len(want) == len(names)
+    for name, g, w in zip(names, got, want):
+        scale = top if name == round_off_leaf(names) else np.abs(w).max()
+        err = np.abs(np.asarray(g) - w).max()
+        assert err <= tol * scale, (name, err, scale)

@@ -1,0 +1,301 @@
+"""The port's clause-partitioned steps (all-reduce and halo exchange)
+against the TPU package's, on gloo ranks on the CPU.
+
+One world of 4 ranks and one of 8 are started for the module; every rank
+runs the cases of `_torch_parallel_ranks.py`, which import torch and the
+port only, and hands back numpy. This process then computes the JAX
+package's values (on its 8 virtual CPU devices) and compares, on
+tests/test_halo.py's batch, with the draws of JAX's key schedule replayed:
+
+- every gradient of the step against JAX's single-device gradient, to
+  1e-5 of each tensor's largest entry, for JAX's cases (4, supervised),
+  (8, supervised), (4, unsupervised), and the all-reduce step as well;
+- the params after one AdaBelief step against JAX's halo step at its own
+  rtol 1e-3 (tests/test_halo.py);
+- the reference's fault: JAX's halo step under plain SGD moves the params
+  by n_shards times the single-device gradient, the port's step computes
+  that gradient;
+- `halo_exchange` against JAX's on every row, the closure rows complete;
+- the flagship's 16-round sharded gradient against the port's own
+  single-device gradient, on 2 ranks: the rounds amplify any imbalance of
+  the replicated state's cotangent copies (`parallel/comm.balance_copies`),
+  which without the balancing read 7x the gradient here.
+
+The last bias of `update_gate` has a true gradient of zero and is held to
+the tolerance times the largest gradient entry of all tensors
+(`_torch_parity.round_off_leaf`).
+"""
+
+import numpy as np
+import optax
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+from diffusionsat_tpu.diffusion.schedule import construct_training_input
+from diffusionsat_tpu.models import query_sat as jqs
+from diffusionsat_tpu.parallel import graph_partition as jgp
+from diffusionsat_tpu.parallel import halo as jhalo
+from diffusionsat_tpu.parallel.mesh import make_mesh
+from diffusionsat_tpu.train.adabelief import adabelief as jadabelief
+from diffusionsat_tpu.train.loop import TrainState as JTrainState
+from diffusionsat_torch.models import query_sat as tqs
+from diffusionsat_torch.parallel.mesh import launch
+
+import _torch_parallel_ranks as ranks
+from _torch_parallel_ranks import BUCKET, random_formulas, strip
+from _torch_parity import (
+    assert_grads_close,
+    batch_pair,
+    leaf_names,
+    np_tree,
+    round_off_leaf,
+)
+
+
+def jax_query_draws(key, jcfg, jb, labels):
+    """The draws JAX's `query_sat_apply` makes from `key` (noise level,
+    noisy input, per-round noise), as the port's injected inputs."""
+    k_noise, _, k_input, key_loop = jax.random.split(key, 4)
+    ns = jax.random.uniform(k_noise, ())
+    nn = construct_training_input(k_input, labels, ns)
+    rn = np.stack([np.asarray(jax.random.normal(
+        jax.random.fold_in(key_loop, r), (jb.V, 4)))
+        for r in range(jcfg.train_rounds)])
+    return dict(noise_scale=float(ns), noisy_num=np.asarray(nn),
+                round_noise=rn)
+
+
+def world_inputs():
+    """The cases of the 4-rank world and what the parent needs to check
+    them."""
+    rng = np.random.default_rng(0)
+    cases, checks = [], []
+    # -- the clause-sharded steps, draws of JAX's key schedule (key 7)
+    for supervised, with_halo in ((True, False), (True, True),
+                                  (False, True), (False, False)):
+        cases.append(("gp", gp_inputs(4, supervised, with_halo)))
+        checks.append(("gp", dict(n=4, supervised=supervised,
+                                  halo=with_halo)))
+
+    # -- halo_exchange on closure-masked partials (tests/test_halo.py:54)
+    hjb, htb = batch_pair(*random_formulas(1), **BUCKET)
+    partials = closure_partials(htb, 4, 5, rng)
+    cases.append(("halo_exchange", dict(batch=strip(htb),
+                                        partials=partials)))
+    checks.append(("halo_exchange", dict(jbatch=hjb, tbatch=htb,
+                                         partials=partials)))
+    return cases, checks
+
+
+def gp_inputs(n, supervised, with_halo):
+    jcfg = jqs.QuerySATConfig(feature_maps=8, query_maps=8, train_rounds=3,
+                              test_rounds=3, supervised=supervised)
+    tcfg = tqs.QuerySATConfig(feature_maps=8, query_maps=8, train_rounds=3,
+                              test_rounds=3, supervised=supervised)
+    jparams = jqs.query_sat_init(jax.random.key(0), jcfg)
+    jb, tb = batch_pair(*random_formulas(5), **BUCKET)
+    _, subkey = jax.random.split(jax.random.key(7))
+    draws = jax_query_draws(subkey, jcfg, jb, jb.solutions)
+    return dict(cfg=tcfg, params=np_tree(jparams), batch=strip(tb),
+                halo=with_halo, draws=draws, adabelief=with_halo,
+                jax=dict(jcfg=jcfg, jparams=jparams, jbatch=jb,
+                         subkey=subkey))
+
+
+def closure_partials(tb, n, F, rng):
+    """Per-shard partials, nonzero only on the shard's closure rows."""
+    closure = np.zeros((n, 2 * tb.V, 1), np.float32)
+    c_per = tb.C // n
+    clause_graph = tb.clause_graph.numpy()
+    v_off = np.concatenate([[0], np.cumsum(
+        tb.n_vars_per_graph.numpy().astype(np.int64))])
+    for s in range(n):
+        for g in np.unique(clause_graph[s * c_per:(s + 1) * c_per]):
+            if g >= tb.G:
+                continue
+            vs = np.arange(v_off[g], v_off[g + 1])
+            closure[s, vs] = 1.0
+            closure[s, tb.V + vs] = 1.0
+    return rng.normal(size=(n, 2 * tb.V, F)).astype(np.float32) * closure
+
+
+def rank_inputs(inp):
+    """The inputs without the JAX values (the ranks get host data only)."""
+    return {k: v for k, v in inp.items() if k != "jax"}
+
+
+@pytest.fixture(scope="module")
+def world4():
+    cases, checks = world_inputs()
+    results = launch(ranks.run_cases, 4, "gloo", None,
+                     [(name, rank_inputs(inp)) for name, inp in cases])
+    return cases, checks, results
+
+
+@pytest.fixture(scope="module")
+def world8():
+    inp = gp_inputs(8, True, True)
+    results = launch(ranks.run_cases, 8, "gloo", None,
+                     [("gp", rank_inputs(inp))])
+    return inp, [r[0] for r in results]
+
+
+def case_results(world4, name, index=0):
+    cases, checks, results = world4
+    at = [i for i, (n, _) in enumerate(checks) if n == name][index]
+    return cases[at][1], checks[at][1], [r[at] for r in results]
+
+
+# -- the clause-sharded and halo steps -------------------------------------
+
+
+_SINGLE_GRADS: dict = {}
+
+
+def jax_single_grads(j):
+    """JAX's single-device loss and gradients of a case (every case of one
+    `supervised` value has the same config, batch and key: computed once)."""
+    key = j["jcfg"].supervised
+    if key not in _SINGLE_GRADS:
+        def loss_fn(p):
+            return jqs.query_sat_apply(p, j["jcfg"], j["jbatch"],
+                                       j["subkey"], training=True,
+                                       labels=j["jbatch"].solutions)[1]
+        loss, g = jax.jit(jax.value_and_grad(loss_fn))(j["jparams"])
+        _SINGLE_GRADS[key] = (float(loss),
+                              [np.asarray(x) for x in jax.tree.leaves(g)])
+    return _SINGLE_GRADS[key]
+
+
+def jax_halo_step(j, n, optimizer):
+    mesh = make_mesh(n_data=1, n_graph=n, devices=jax.devices()[:n])
+    plan = jhalo.build_halo_plan(j["jbatch"], n)
+    step = jhalo.make_halo_gp_train_step(j["jcfg"], optimizer, mesh, plan)
+    state = JTrainState(params=j["jparams"],
+                        opt_state=optimizer.init(j["jparams"]),
+                        step=jnp.zeros((), jnp.int32),
+                        key=jax.random.key(7))
+    new, out = step(state, jgp.build_local_batches(j["jbatch"], n))
+    return [np.asarray(x) for x in jax.tree.leaves(new.params)], \
+        float(out["loss"])
+
+
+def gp_case(world4, supervised, with_halo):
+    cases, checks, results = world4
+    for i, (name, chk) in enumerate(checks):
+        if name == "gp" and chk["supervised"] == supervised and \
+                chk["halo"] == with_halo:
+            return cases[i][1], [r[i] for r in results]
+    raise KeyError((supervised, with_halo))
+
+
+GP_CASES = [(4, True, False), (4, True, True), (8, True, True),
+            (4, False, True), (4, False, False)]
+
+
+def gp_results(world4, world8, n, supervised, with_halo):
+    if n == 8:
+        return world8
+    return gp_case(world4, supervised, with_halo)
+
+
+@pytest.mark.parametrize("n,supervised,with_halo", GP_CASES)
+def test_sharded_step_gradient_is_the_single_device_gradient(
+        world4, world8, n, supervised, with_halo):
+    inp, res = gp_results(world4, world8, n, supervised, with_halo)
+    loss, grads = jax_single_grads(inp["jax"])
+    names = leaf_names(inp["jax"]["jparams"])
+    for r in res:
+        np.testing.assert_allclose(r["loss"], loss, rtol=1e-5)
+        assert_grads_close(r["grads"], grads, names)
+    # every rank applies the same summed gradient
+    for r in res[1:]:
+        for a, b in zip(r["grads"], res[0]["grads"]):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("n,supervised", [(4, True), (8, True), (4, False)])
+def test_halo_step_params_after_one_adabelief_step(world4, world8, n,
+                                                   supervised):
+    """tests/test_halo.py's check, against JAX's halo step itself."""
+    inp, res = gp_results(world4, world8, n, supervised, True)
+    want, want_loss = jax_halo_step(inp["jax"], n,
+                                    jadabelief(learning_rate=1e-3))
+    for r in res:
+        np.testing.assert_allclose(r["adabelief_loss"], want_loss,
+                                   rtol=1e-4)
+        for a, b in zip(r["adabelief_params"], want):
+            np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("supervised", [True, False])
+def test_reference_halo_gradient_is_n_shards_times_too_large(
+        world4, supervised):
+    """The fault of the reference that the port does not copy: under
+    `optax.sgd(1.0)` JAX's halo step moves each parameter by 4x the
+    single-device gradient (4 shards); the port's step computes the
+    single-device gradient. The round-off leaf is left out of the ratio."""
+    inp, res = gp_case(world4, supervised, True)
+    _, grads = jax_single_grads(inp["jax"])
+    after, _ = jax_halo_step(inp["jax"], 4, optax.sgd(1.0))
+    before = [np.asarray(x) for x in jax.tree.leaves(inp["jax"]["jparams"])]
+    names = leaf_names(inp["jax"]["jparams"])
+    for name, b, a, g in zip(names, before, after, grads):
+        if name == round_off_leaf(names):
+            continue
+        moved = b - a
+        np.testing.assert_allclose(moved, 4 * g, rtol=1e-3,
+                                   atol=1e-3 * np.abs(4 * g).max())
+    assert_grads_close(res[0]["grads"], grads, names)
+
+
+def test_halo_exchange_completes_the_closure_rows(world4):
+    _, chk, res = case_results(world4, "halo_exchange")
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    n, jb = 4, chk["jbatch"]
+    plan = jhalo.build_halo_plan(jb, n)
+    mesh = make_mesh(n_data=1, n_graph=n, devices=jax.devices()[:n])
+
+    def ex(p, idx, mask):
+        return jhalo.halo_exchange(p[0], idx[0], mask[0], "graph")
+
+    want = np.asarray(shard_map(
+        ex, mesh=mesh, in_specs=(P("graph"), P("graph"), P("graph")),
+        out_specs=P("graph"), check_vma=False)(
+            jnp.asarray(chk["partials"]), plan.send_idx, plan.send_mask)
+    ).reshape(n, 2 * jb.V, -1)
+    total = chk["partials"].sum(axis=0)
+    for s in range(n):
+        got = res[s]["out"]
+        np.testing.assert_allclose(got, want[s], rtol=1e-6, atol=1e-6)
+        rows = np.abs(chk["partials"][s]).sum(axis=1) > 0
+        np.testing.assert_allclose(got[rows], total[rows], rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_flagship_sharded_gradient_balances_its_copies():
+    """16 rounds of the flagship on an 800-node threshold batch (random
+    labels, the regime that amplifies most), 2 shards: the all-reduce and
+    the halo step within 1e-4 of each tensor's largest entry of the
+    single-device gradient (2.9e-5 read; 7.0 and 1.6e-2 with every copy's
+    cotangent left as autograd split it)."""
+    import dataclasses
+    from pathlib import Path
+
+    from diffusionsat_torch.data.bench_workloads import threshold_3sat_batch
+    from diffusionsat_torch.train.checkpoint import load_params
+
+    ckpt = Path(__file__).resolve().parent.parent / "pretrained" / \
+        "query_sat_3sat_diffusion_mlk64.npz"
+    tree, meta = load_params(ckpt)
+    cfg = dataclasses.replace(tqs.QuerySATConfig.from_meta(meta["config"]),
+                              train_rounds=16)
+    batch, _ = threshold_3sat_batch(np.random.default_rng(0), 800)
+    res = launch(ranks.balance_case, 2, "gloo", None,
+                 dict(cfg=cfg, params=tree, batch=strip(batch)))
+    for r in res:
+        assert r["all_reduce"] <= 1e-4 and r["halo"] <= 1e-4, r

@@ -202,22 +202,41 @@ def test_rounds_after_solving_are_no_ops(mlk64):
 
 
 @pytest.mark.parametrize("mode", [
-    dict(training=True), dict(axis_name="graph"), dict(halo={}),
+    dict(training=True), dict(group="one rank"), dict(halo={}),
     dict(cfg=dict(block_bf16=True)), dict(cfg=dict(remat="full")),
     dict(cfg=dict(compute_dtype=torch.bfloat16)),
 ])
 def test_unported_modes_raise(mode):
-    """Sharded execution still raises, naming its ROADMAP item. The training
-    modes that raised before the training slice now run (their numbers are
-    held in test_torch_train_grads.py)."""
+    """Every mode of the TPU package's apply runs in the port. Sharded
+    execution (the TPU package's `axis_name`, the port's process `group`)
+    on a group of one rank equals the unsharded run bit for bit; a halo
+    view without its group raises (tests/test_torch_parallel*.py hold the
+    sharded numbers). The training modes that raised before the training
+    slice run (their numbers are held in test_torch_train_grads.py)."""
     cfg = tqs.QuerySATConfig(**SMALL, **mode.pop("cfg", {}))
     params = tqs.query_sat_init(torch.Generator().manual_seed(0), cfg)
     formulas, sols = random_formulas(0, n_formulas=2)
     _, tb = batch_pair(formulas, sols)
-    if set(mode) & {"axis_name", "halo"}:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP item 'Multi-device'"):
+    if "halo" in mode:
+        with pytest.raises(ValueError, match="process group"):
             tqs.query_sat_apply(params, cfg, tb, None, device="cpu", **mode)
+        return
+    if "group" in mode:
+        import torch.distributed as dist
+
+        from diffusionsat_torch.parallel.mesh import free_port
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
+            world_size=1, rank=0)
+        try:
+            outs = [tqs.query_sat_apply(
+                params, cfg, tb, torch.Generator().manual_seed(1),
+                device="cpu", group=group)
+                for group in (None, dist.new_group([0]))]
+        finally:
+            dist.destroy_process_group()
+        for a, b in zip(outs[0][:3], outs[1][:3]):
+            assert torch.equal(a, b)
         return
     if mode.get("training"):
         for leaf in jax.tree.leaves(params):

@@ -56,18 +56,20 @@ def test_defaults_equal_the_tpu_packages_field_by_field():
     (["--label_samples", "4", "--model", "simple_neurosat"], "item 4"),
 ])
 def test_unported_options_raise_naming_their_item(argv, item, tmp_path):
-    """An unported option raises before anything is written, naming its
-    ROADMAP item. The models of Queue 1 item 4 are ported: their `--model`
-    now passes the check, as the TPU package's script takes every
-    registered name (`test_model_flag_names_the_run_and_trains_query_sat`
-    trains under each)."""
-    if item == "item 4":
-        diffusion_training._check_ported(tconfig.parse_config(argv))
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        diffusion_training.main(argv + ["--device", "cpu", "--data_dir",
-                                        str(tmp_path)])
-    assert not list(tmp_path.iterdir())
+    """The options of the ROADMAP items that raised are ported: the models
+    of Queue 1 item 4 pass the check, as the TPU package's script takes
+    every registered name (`test_model_flag_names_the_run_and_trains_query_sat`
+    trains under each), and so does item 7's `--n_devices`
+    (tests/test_torch_parallel_cli.py trains under it), whose refusal of
+    the self-supervised step comes, as in the TPU package's script, before
+    anything is written."""
+    diffusion_training._check_ported(tconfig.parse_config(argv))
+    if item == "item 7":
+        with pytest.raises(SystemExit, match="self_supervised"):
+            diffusion_training.main(argv + [
+                "--self_supervised", "true", "--device", "cpu",
+                "--data_dir", str(tmp_path)])
+        assert not list(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("argv", [
