@@ -13,9 +13,11 @@ Phases, each of which raises (exit code 1) on failure:
    sampler batch of `primes_3599_61x59.cnf`, on a 20 000-node threshold
    3-SAT batch, on the first batch of the eval split and on the flat
    uniformity battery's batch (p24 formula 0, 125 copies): max-abs error
-   against `segsum_plain`, and the times of the kernel, the plain version
-   and the library calls for the same function (`index_select`, then
-   `index_add_`), beside the bound;
+   against `segsum_plain` (which must be 0: both sum in plan order), the
+   plan's longest and mean segment, and the times of the kernel, the plain
+   version and the library calls for the same function (`index_select`,
+   then `index_add_`), beside the bound and the launch floor (a one-element
+   kernel's device time, from 100 replayed in a graph, read once a run);
 3. model: the shipped flagship `query_sat_3sat_diffusion_mlk64.npz` at full
    width on the 20 000-node batch in the solving regime (noise 1.0): 4
    noise-free rounds through the kernel against the plain path and against
@@ -197,6 +199,12 @@ and reads phase 11's 4-round gradient gate on more batches and seeds,
 sound and with faults planted (`grad_gate_study`). Inference rounds run as CUDA graphs in every
 phase (the launches a graph captured are credited once per replay).
 
+`--baseline-kernel PATH`, beside any of the above, builds PATH (another
+version of `csrc/segsum.cu` with the same C interface, such as an earlier
+commit's) and times it beside the kernel on every row of the kernel table,
+in turns (baseline, kernel, kernel, baseline): the rows gain
+`baseline_ms` and both designs' readings. Its launches are not counted.
+
 Every line of standard output is one JSON object, except the card line of
 `nvidia-smi` and the lines that the entry points run in-process print
 themselves (the eval's count of test batches, the sampler's note when it
@@ -236,8 +244,9 @@ REPLACES = "diffusionsat_tpu/ops/pallas_segsum.py:97"
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
 
-# kernel vs plain: the two sum each segment in other (fixed) orders, so
-# they agree to f32 summation order
+# kernel vs plain: both sum each segment's columns in plan order, so they
+# are gated equal bit for bit; this tolerance holds the library calls, and
+# the kernel as well before the exact gate
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 # 4 recurrent rounds amplify that summation-order difference
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -843,6 +852,14 @@ def planted_fault(kind: str):
 T0 = time.perf_counter()
 
 
+def ptxas_lines(build_log: str) -> list[str]:
+    """What `-Xptxas -v` said of each kernel instantiation: its name, its
+    registers, and its stack and spills."""
+    return [ln.strip() for ln in build_log.splitlines()
+            if "Compiling entry function" in ln or "Used" in ln or
+            "spill" in ln]
+
+
 def emit(**obj):
     """One JSON line, with the script's seconds so far (`t`)."""
     print(json.dumps({**obj, "t": round(time.perf_counter() - T0, 1)}),
@@ -1398,6 +1415,24 @@ def anf_phase(dev, data_dir: Path, tools: dict) -> dict:
             raise RuntimeError(f"flat ANF steps launched {launched}, "
                                f"reckoned {want}")
         train_launches = launched
+
+    # -- the tiled step sums in one fixed order: run twice, equal ----------
+    from torch.utils import _pytree as pytree
+    repeats = []
+    for _ in range(2):
+        state, step = fresh("tiled")
+        for items in tiled_train[:2]:
+            state, out = step(state, *items)
+        repeats.append((pytree.tree_leaves(state.params), out["loss"]))
+    sync()
+    differ = sum(not torch.equal(a, b) for a, b in
+                 zip(repeats[0][0], repeats[1][0]))
+    emit(phase="anf_tiled_repeat", steps=2, params=len(repeats[0][0]),
+         params_differing=differ,
+         losses=[r[1].item() for r in repeats],
+         tile_precision=tiled_ops.TILE_PRECISION)
+    if differ or not torch.equal(repeats[0][1], repeats[1][1]):
+        raise RuntimeError(f"two tiled ANF runs differ: {differ} params")
 
     # -- the training script in-process: eval, checkpoint, restore ---------
     run_root = ROOT / "runs" / "chip_smoke_anf"
@@ -3363,12 +3398,22 @@ def main(argv: list[str]) -> int:
     if len(argv) == 2 and argv[0] == "--make-splits":
         sys.path.insert(0, str(ROOT))
         return make_splits(Path(argv[1]))
+    baseline = None
+    if "--baseline-kernel" in argv:
+        at = argv.index("--baseline-kernel")
+        if at + 1 >= len(argv):
+            print("chip_smoke: --baseline-kernel needs a path",
+                  file=sys.stderr)
+            return 2
+        baseline = Path(argv[at + 1]).resolve()
+        argv = argv[:at] + argv[at + 2:]
     if argv not in ([], ["--only-anf"], ["--only-graphs"], ["--only-main"],
                     ["--only-models"], ["--only-studies"], ["--only-multi"],
                     ["--grad-gate-study"]):
         print("usage: chip_smoke.py [--only-anf | --only-graphs | "
               "--only-main | --only-models | --only-studies | "
-              "--only-multi | --grad-gate-study]", file=sys.stderr)
+              "--only-multi | --grad-gate-study] "
+              "[--baseline-kernel PATH]", file=sys.stderr)
         return 2
 
     if not torch.cuda.is_available():
@@ -3382,13 +3427,15 @@ def main(argv: list[str]) -> int:
     # the full run makes its splits ahead, beside the card's work
     splits = Splits(ROOT / "data_cache", ahead=not argv)
     try:
-        return run(argv, splits)
+        return run(argv, splits, baseline)
     finally:
         splits.close()
 
 
-def run(argv: list[str], splits: Splits) -> int:
-    """The phases that `argv` asks for (all of them without arguments)."""
+def run(argv: list[str], splits: Splits, baseline: Path | None = None
+        ) -> int:
+    """The phases that `argv` asks for (all of them without arguments);
+    `baseline`, a version of the kernel's source timed beside it."""
     import numpy as np
     import torch
 
@@ -3501,24 +3548,60 @@ def run(argv: list[str], splits: Splits) -> int:
             return dict(library_ms=event_ms(fn), library_timing="events",
                         library_capture_error=str(e)[:200])
 
+    floor = {}
+
+    def launch_floor_ms():
+        """The device time of one launch of a one-element kernel, from 100
+        replayed in a CUDA graph: what a launch costs whatever it does
+        (read once a run)."""
+        if "ms" not in floor:
+            one = torch.zeros(1, device=dev)
+            floor["ms"] = device_ms(lambda: one.add_(1.0), iters=100)
+        return floor["ms"]
+
+    baseline_lib = None
+    if baseline is not None:
+        baseline_lib = segsum.build_library(baseline)
+        emit(phase="baseline_build", source=str(baseline),
+             nvcc_seconds=baseline_lib.build_seconds,
+             ptxas=ptxas_lines(baseline_lib.build_log))
+
+    def baseline_segsum(x, plan):
+        """`gather_segsum` through the baseline library (not counted)."""
+        out = torch.empty((plan.num_segments, x.shape[1]), device=dev)
+        rc = baseline_lib.lib.dsat_gather_segsum(
+            x.data_ptr(), x.stride(0), plan.row_ptr.data_ptr(),
+            plan.gather.data_ptr(), out.data_ptr(), plan.num_segments,
+            x.shape[1], torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"baseline kernel launch failed ({rc})")
+        return out
+
     def kernel_row(plan, F, gen):
         """The kernel against its plain version on `plan` at width F, on a
-        random input: the max-abs error (which must lie within KERNEL_TOL),
-        the device times of the kernel, the plain version and the library
-        calls for the same function, and the bound. Returns (row, shape)."""
+        random input: the max-abs error (which must be 0), the device
+        times of the kernel, the plain version and the library calls for
+        the same function, beside the bound and the launch floor; with a
+        baseline kernel, its times in turns with the kernel's. Returns
+        (row, shape)."""
         x = torch.randn((plan.num_sources, F), generator=gen, device=dev)
         got = segsum.gather_segsum(x, plan)
         want = segsum.segsum_plain(x, plan)
         sync()
         torch.testing.assert_close(got, want, **KERNEL_TOL)
         err = (got - want).abs().max().item()
+        if not torch.equal(got, want):
+            raise RuntimeError(f"{plan.name} at F = {F}: the kernel differs "
+                               f"from its plain version by {err}; both sum "
+                               "in plan order and must agree bit for bit")
         # the real edges (a padded plan's tail is never read) and the
         # distinct rows of x they gather
         M, E = plan.num_segments, int(plan.row_ptr[-1])
         N = int(torch.unique(plan.gather[:E]).numel())
+        lengths = plan.row_ptr.diff()
         seg = torch.repeat_interleave(
-            torch.arange(M, device=dev, dtype=torch.int32),
-            plan.row_ptr.diff(), output_size=E)
+            torch.arange(M, device=dev, dtype=torch.int32), lengths,
+            output_size=E)
         acc = torch.zeros((M, F), device=dev)
 
         def library_call():
@@ -3539,17 +3622,39 @@ def run(argv: list[str], splits: Splits) -> int:
         nbytes = N * F * 4 + M * F * 4 + E * 4 + (M + 1) * 4
         ops = E * F
         bound_s = max(nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S)
+
+        def kernel():
+            return segsum.gather_segsum(x, plan)
+
+        if baseline_lib is None:
+            timed = dict(ms=device_ms(kernel))
+        else:
+            base_out = baseline_segsum(x, plan)
+            sync()
+            base = [device_ms(lambda: baseline_segsum(x, plan))]
+            ms = [device_ms(kernel), device_ms(kernel)]
+            base.append(device_ms(lambda: baseline_segsum(x, plan)))
+            timed = dict(ms=sum(ms) / 2, ms_readings=ms,
+                         baseline_ms=sum(base) / 2,
+                         baseline_readings=base,
+                         baseline_max_abs_err=(base_out - want).abs().max()
+                         .item())
+        floor_ms = launch_floor_ms()
         row = dict(
-            ms=device_ms(lambda: segsum.gather_segsum(x, plan)),
+            **timed,
             plain_ms=device_ms(lambda: segsum.segsum_plain(x, plan)),
             **library_times(lambda: torch.sparse.mm(csr, x)),
             library_index_ms=device_ms(library_call),
             bound_ms=bound_s * 1e3,
             bound_by=("bytes" if nbytes / H100_BYTES_PER_S >=
                       ops / H100_F32_OPS_PER_S else "operations"),
+            launch_floor_ms=floor_ms,
+            floor_share=max(bound_s * 1e3, floor_ms) / timed["ms"],
             max_abs_err=err)
         return row, dict(segments=M, edges=E, sources=plan.num_sources,
-                         rows_read=N, F=F, bytes=nbytes)
+                         rows_read=N, F=F, bytes=nbytes,
+                         max_segment=int(lengths.max()) if M else 0,
+                         mean_segment=E / max(M, 1))
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3589,7 +3694,7 @@ def run(argv: list[str], splits: Splits) -> int:
     lib = segsum.build_library()
     emit(phase="build", seconds=time.perf_counter() - t0,
          nvcc_seconds=lib.build_seconds, library=lib.path.name,
-         ptxas=[ln for ln in lib.build_log.splitlines() if "Used" in ln])
+         ptxas=ptxas_lines(lib.build_log))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -11,7 +11,7 @@ in one of three ways:
   card (its plain version on the CPU);
 - `tiles` (ops/tiled_ops.TiledIncidence, `anf_value_cplx` only): the tile
   products, at full f32, since these sums feed exp and cos;
-- neither: gather and `index_add_`.
+- neither: gathers and fixed-order segment sums.
 
 The two sums of a value (log magnitudes and signs; angles and log lengths)
 share one aggregation of their concatenated columns.

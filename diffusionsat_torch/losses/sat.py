@@ -130,18 +130,33 @@ def softplus_mixed_loss(logits: torch.Tensor, batch: SatBatch,
     return v * log_clauses
 
 
-def linear_loss(logits: torch.Tensor, batch: SatBatch) -> torch.Tensor:
-    """Scalar linear loss: sum of relu(1 - clause true-literal mass) plus a
-    binarization penalty sum(p^2 (p-1)^2)."""
-    logits = _as_2d(logits)
-    probs = torch.sigmoid(logits)
+def linear_clause_loss(logits: torch.Tensor, batch: SatBatch
+                       ) -> torch.Tensor:
+    """The clause term of `linear_loss`: the sum over the clauses of
+    relu(1 - clause true-literal mass). On a clause shard it is the
+    shard's part of the sum."""
+    probs = torch.sigmoid(_as_2d(logits))
     literals = torch.cat([probs, 1 - probs], dim=0)
     clauses_val = lit_to_clause(batch, literals)
     clauses_val = torch.relu(1 - clauses_val) * batch.clause_mask[:, None]
-    literal_loss = torch.sum(
-        torch.square(probs) * torch.square(probs - 1) *
-        batch.var_mask[:, None])
-    return torch.sum(clauses_val) + literal_loss
+    return torch.sum(clauses_val)
+
+
+def linear_literal_loss(logits: torch.Tensor, batch: SatBatch
+                        ) -> torch.Tensor:
+    """The literal term of `linear_loss`: the binarization penalty
+    sum(p^2 (p-1)^2) over the real variables (whole on every clause
+    shard)."""
+    probs = torch.sigmoid(_as_2d(logits))
+    return torch.sum(torch.square(probs) * torch.square(probs - 1) *
+                     batch.var_mask[:, None])
+
+
+def linear_loss(logits: torch.Tensor, batch: SatBatch) -> torch.Tensor:
+    """Scalar linear loss: sum of relu(1 - clause true-literal mass) plus a
+    binarization penalty sum(p^2 (p-1)^2)."""
+    return linear_clause_loss(logits, batch) + \
+        linear_literal_loss(logits, batch)
 
 
 def _edge_signs(batch: SatBatch) -> torch.Tensor:

@@ -15,9 +15,13 @@ scatter run one of three ways:
 - `plans` (ops/segsum.ANFPlans): the hand-written CUDA segsum kernel on the
   card, forward and backward (its plain version for CPU tensors);
 - `tiles` (ops/tiled_ops.TiledIncidence): the tile products for the
-  membership sums (the value sums at full f32), `index_add_` for the AND
-  scatter;
-- neither: gather and `index_add_`.
+  membership sums (the value sums at full f32), a fixed-order segment sum
+  for the AND scatter;
+- neither: gathers and fixed-order segment sums.
+
+Every sum takes one fixed order (no atomics): the AND scatter without
+plans sums each variable's operand slots in an order sorted once a batch,
+so two runs of a step agree bit for bit on the card.
 
 In inference on the card each round is a CUDA graph, replayed
 (`cuda_graphs.run_rounds`). With `training=True` every round is recomputed in the backward
@@ -50,7 +54,11 @@ from diffusionsat_torch.nn.normalization import (
     pair_norm_clauses,
     pair_norm_vars,
 )
-from diffusionsat_torch.ops.graph_ops import clause_segment_sum, gather_rows
+from diffusionsat_torch.ops.graph_ops import (
+    clause_segment_sum,
+    gather_rows,
+    segment_sum,
+)
 from diffusionsat_torch.ops.segsum import ANFPlans, plan_and_to_var
 from diffusionsat_torch.ops.tiled_ops import (
     TiledIncidence,
@@ -143,6 +151,27 @@ def _zero_state(n_units: int, n_features: int, device: torch.device,
                                           device=device)) * stddev
 
 
+def and_operand_slots(a1_var: torch.Tensor, a2_var: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 2A operand slots of the AND nodes sorted by variable, once a
+    batch, for `scatter_ands`: (the AND node of each slot, its variable).
+    The sort is stable, so a variable's slots keep the order of the AND
+    nodes' first operands, then of their second ones."""
+    ops = torch.cat([a1_var, a2_var])
+    order = torch.argsort(ops, stable=True)
+    return torch.remainder(order, a1_var.shape[0]), ops.index_select(0, order)
+
+
+def scatter_ands(ands_value: torch.Tensor,
+                 slots: tuple[torch.Tensor, torch.Tensor],
+                 num_vars: int) -> torch.Tensor:
+    """Each AND node's row [A, F] added to both of its operand variables:
+    [A, F] -> [V, F], each variable's slots summed in the order of
+    `and_operand_slots` (no atomics), its backward a gather."""
+    src, var = slots
+    return segment_sum(gather_rows(ands_value, src), var, num_vars)
+
+
 def anf_sat_apply(params: dict, cfg: ANFSATConfig, batch: ANFBatch,
                   generator: torch.Generator | None = None,
                   training: bool = True,
@@ -195,6 +224,7 @@ def _anf_sat_apply(params, cfg, batch, generator, training, labels, rounds,
     # constant in the generated systems; clamped anyway)
     a1_var = torch.clamp(batch.and1 - 1, min=0)
     a2_var = torch.clamp(batch.and2 - 1, min=0)
+    and_slots = and_operand_slots(a1_var, a2_var)
 
     supervised = cfg.supervised and labels is not None
     smoothed = ce_w = None
@@ -211,7 +241,8 @@ def _anf_sat_apply(params, cfg, batch, generator, training, labels, rounds,
     ctx = dict(params=params, batch=batch, plans=plans, tiles=tiles,
                degree_weight=degree_weight,
                clause_degree_weight=clause_degree_weight, a1_var=a1_var,
-               a2_var=a2_var, smoothed=smoothed, ce_w=ce_w)
+               a2_var=a2_var, and_slots=and_slots, smoothed=smoothed,
+               ce_w=ce_w)
 
     def make_round(ctx):
         params, batch = ctx["params"], ctx["batch"]
@@ -219,6 +250,7 @@ def _anf_sat_apply(params, cfg, batch, generator, training, labels, rounds,
         degree_weight = ctx["degree_weight"]
         clause_degree_weight = ctx["clause_degree_weight"]
         a1_var, a2_var = ctx["a1_var"], ctx["a2_var"]
+        and_slots = ctx["and_slots"]
         smoothed, ce_w = ctx["smoothed"], ctx["ce_w"]
 
         if tiles is not None:
@@ -237,9 +269,7 @@ def _anf_sat_apply(params, cfg, batch, generator, training, labels, rounds,
         def ands_to_vars(ands_value):
             if plans is not None:
                 return plan_and_to_var(ands_value, plans)
-            z = ands_value.new_zeros((V, ands_value.shape[1]))
-            return z.index_add(0, a1_var, ands_value).index_add(
-                0, a2_var, ands_value)
+            return scatter_ands(ands_value, and_slots, V)
 
         def round_body(variables, clause_state, loss_sum, noise4):
             if cfg.use_query:

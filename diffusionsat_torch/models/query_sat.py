@@ -55,7 +55,8 @@ from diffusionsat_torch.diffusion.schedule import (
 from diffusionsat_torch.graph.batch import SatBatch
 from diffusionsat_torch.losses.sat import (
     is_batch_sat,
-    linear_loss,
+    linear_clause_loss,
+    linear_literal_loss,
     softplus_loss_and_grad,
     softplus_mixed_loss,
 )
@@ -156,11 +157,11 @@ class QuerySATConfig:
 def _check_ported(cfg: QuerySATConfig, group, halo):
     if halo is not None and group is None:
         raise ValueError("a halo view needs the process group of its shards")
-    if group is not None and not cfg.supervised and cfg.use_linear_loss:
-        # linear_loss's literal regularizer is replicated: shards would each
-        # count it once
+    if halo is not None and not cfg.supervised and cfg.use_linear_loss:
+        # as in the TPU package: the halo step owner-masks its per-graph
+        # losses, and linear_loss's literal regularizer has no owner
         raise NotImplementedError(
-            "sharded execution supports supervised and clause-partitioned "
+            "halo execution supports supervised and clause-partitioned "
             "unsupervised losses; linear_loss is not owner-maskable")
     if cfg.dtype != torch.float32:
         raise ValueError("states are float32; the reduced-precision modes "
@@ -451,10 +452,17 @@ def _query_sat_apply(params, cfg, batch, generator, training, labels,
                     per_graph_loss = all_reduce_sum(
                         per_graph_loss * halo.owner_mask[:, None], group)
             elif cfg.use_linear_loss:
-                # a scalar loss, spread evenly over the real graphs and heads
+                # a scalar loss, spread evenly over the real graphs and heads.
+                # On a clause shard the clause term is completed over the
+                # group; the literal term is whole on every rank, and enters
+                # the gradient once as every replicated term does (each rank
+                # differentiates 1/n of the loss)
+                clause_term = linear_clause_loss(logits, batch)
+                if group is not None:
+                    clause_term = all_reduce_sum(clause_term, group)
                 per_graph_loss = torch.zeros((batch.G, K), device=dev) + \
-                    linear_loss(logits, batch) / torch.clamp(
-                        batch.graph_mask.sum(), min=1.0) / K
+                    (clause_term + linear_literal_loss(logits, batch)) / \
+                    torch.clamp(batch.graph_mask.sum(), min=1.0) / K
                 per_graph_loss = per_graph_loss * batch.graph_mask[:, None]
             else:
                 per_clause_loss = softplus_mixed_loss(logits, batch)

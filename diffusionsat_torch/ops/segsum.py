@@ -3,7 +3,8 @@
 Counterpart of the TPU package's `ops/pallas_segsum.py`. The TPU kernel
 (`_segsum_kernel`, a one-hot matmul per tile with overlapping output
 windows) is replaced by `csrc/segsum.cu`: a fused gather and sorted
-segmented sum over a CSR plan, one warp per output row, no atomics.
+segmented sum over a CSR plan, each output row written once by the lanes
+that own it, its rows added in plan order, no atomics.
 
 - `build_segsum_plan` / `build_batch_plans`: host-side (numpy) CSR plans,
   one per direction, with masked edges dropped. They have no tile or
@@ -38,7 +39,9 @@ segmented sum over a CSR plan, one warp per output row, no atomics.
   under their own names, apart from the CNF directions.
 
 The kernel is compiled from the package's sources with nvcc at first use,
-into `_build/` beside this package, and bound with ctypes.
+into `_build/` beside this package, and bound with ctypes
+(`build_library`, which also builds another version of the source to
+time beside it).
 """
 
 from __future__ import annotations
@@ -117,39 +120,46 @@ def _find_nvcc() -> str:
     return nvcc
 
 
-def build_library() -> _Library:
+def build_library(source: Path | None = None) -> _Library:
     """Compile `csrc/segsum.cu` (once per process, and once per source
-    version on disk) and bind its C interface."""
+    version on disk) and bind its C interface. `source` names another
+    file with the same interface (an earlier version of the kernel, to
+    time beside it): built and bound on each call, never used by the
+    wrappers below."""
     global _library
+    if source is not None:
+        return _build(Path(source))
     with _library_lock:
-        if _library is not None:
-            return _library
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        so = BUILD_DIR / f"libsegsum_{tag[:16]}.so"
-        seconds, log = 0.0, ""
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-            os.replace(tmp, so)  # atomic: concurrent builders agree
-        lib = ctypes.CDLL(str(so))
-        fn = lib.dsat_gather_segsum
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.dsat_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.dsat_cuda_error_string.restype = ctypes.c_char_p
-        _library = _Library(lib=lib, path=so, build_seconds=seconds,
-                            build_log=log)
+        if _library is None:
+            _library = _build(SOURCE)
         return _library
+
+
+def _build(source: Path) -> _Library:
+    src = source.read_bytes()
+    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    so = BUILD_DIR / f"libsegsum_{tag[:16]}.so"
+    seconds, log = 0.0, ""
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+        os.replace(tmp, so)  # atomic: concurrent builds agree
+    lib = ctypes.CDLL(str(so))
+    fn = lib.dsat_gather_segsum
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.dsat_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.dsat_cuda_error_string.restype = ctypes.c_char_p
+    return _Library(lib=lib, path=so, build_seconds=seconds, build_log=log)
 
 
 # ---------------------------------------------------------------------------

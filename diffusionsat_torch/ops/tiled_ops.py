@@ -4,9 +4,12 @@ products over the non-empty tiles of the incidence.
 Counterpart of the TPU package's `ops/tiled_ops.py`, which runs there as a
 batched matrix product plus a tile-level segment sum, both left to its
 compiler (no Pallas kernel). Here they are torch ops: `torch.bmm` over the
-tile list and `index_add_` into the row (or column) blocks. A big sparse
-incidence (CNF clause x literal, ANF clause x value node) is cut into
-[tc, tl] blocks, and only the blocks that hold an edge are kept.
+tile list and a sum of the tile products into their row (or column)
+blocks over offsets built with the tiles (`torch.segment_reduce`), the
+gathers' backwards summed the same way: no atomics, one fixed order, so
+two runs agree bit for bit on the card. A big sparse incidence (CNF
+clause x literal, ANF clause x value node) is cut into [tc, tl] blocks,
+and only the blocks that hold an edge are kept.
 
 - `build_tiled_from_edges` / `build_tiled_incidence` / `build_anf_tiles`:
   host-side (numpy) tile builds, returning CPU tensors. The real tiles are
@@ -15,7 +18,9 @@ incidence (CNF clause x literal, ANF clause x value node) is cut into
   ascending real tiles, so `row_blk` is unsorted there although that
   package tells its segment sum it is sorted. Here they point at the last
   row block, so `row_blk` stays sorted; a zero block adds nothing wherever
-  it points.
+  it points. The offsets of each row block's tiles, the tiles in column
+  order (a stable sort) and the offsets of each column block's are built
+  with the tiles, once, for the block sums.
 - `tiled_lit_to_clause` / `tiled_clause_to_lit`: the pair, differentiable
   through autograd (the backward of each is the other's arithmetic).
 
@@ -70,6 +75,9 @@ class TiledIncidence:
     blocks: torch.Tensor   # [T, tc, tl] f32 edge multiplicities
     row_blk: torch.Tensor  # [T] int32 row-block index, sorted ascending
     col_blk: torch.Tensor  # [T] int32 column-block index
+    row_offsets: torch.Tensor  # [n_row_blocks + 1] int64 tile offsets
+    col_perm: torch.Tensor     # [T] int64 tiles in stable col_blk order
+    col_offsets: torch.Tensor  # [n_col_blocks + 1] int64, into col_perm
     tc: int
     tl: int
     n_row_blocks: int
@@ -83,9 +91,25 @@ class TiledIncidence:
         return self.blocks.shape[0]
 
     def to(self, device: str | torch.device) -> "TiledIncidence":
-        return dataclasses.replace(self, blocks=self.blocks.to(device),
-                                   row_blk=self.row_blk.to(device),
-                                   col_blk=self.col_blk.to(device))
+        return dataclasses.replace(self, **{
+            f: getattr(self, f).to(device) for f in (
+                "blocks", "row_blk", "col_blk", "row_offsets", "col_perm",
+                "col_offsets")})
+
+
+def tile_orders(row_blk: np.ndarray, col_blk: np.ndarray, n_row_blocks: int,
+                n_col_blocks: int) -> dict[str, torch.Tensor]:
+    """The block sums' orders of a tile list whose `row_blk` is sorted: the
+    offsets of each row block's tiles, the tiles sorted by column block
+    (stable) and the offsets of each column block's tiles in that order."""
+    col_perm = np.argsort(col_blk, kind="stable")
+    return dict(
+        row_offsets=torch.from_numpy(np.searchsorted(
+            row_blk, np.arange(n_row_blocks + 1)).astype(np.int64)),
+        col_perm=torch.from_numpy(col_perm.astype(np.int64)),
+        col_offsets=torch.from_numpy(np.searchsorted(
+            col_blk[col_perm], np.arange(n_col_blocks + 1)).astype(
+                np.int64)))
 
 
 def build_tiled_from_edges(rows, cols, n_rows: int, n_cols: int,
@@ -119,7 +143,9 @@ def build_tiled_from_edges(rows, cols, n_rows: int, n_cols: int,
     col_blk[:T] = (uniq % n_cb).astype(np.int32)
     return TiledIncidence(
         blocks=torch.from_numpy(blocks), row_blk=torch.from_numpy(row_blk),
-        col_blk=torch.from_numpy(col_blk), tc=tc, tl=tl, n_row_blocks=n_rb,
+        col_blk=torch.from_numpy(col_blk),
+        **tile_orders(row_blk, col_blk, n_rb, n_cb), tc=tc, tl=tl,
+        n_row_blocks=n_rb,
         n_col_blocks=n_cb, num_clauses=n_rows, num_literals=n_cols,
         n_real_tiles=T)
 
@@ -161,17 +187,53 @@ def _tile_product(blocks: torch.Tensor, g: torch.Tensor, transpose: bool,
     return torch.bmm(a, g.float())
 
 
+class _BlockSum(torch.autograd.Function):
+    """out[b] = the sum of the rows of `data` (one a tile) whose block id
+    `ids` is b, in the order `order` lists them (tile order when None),
+    over the block offsets `offsets` into that order: one fixed order.
+    Its backward hands each tile its block's cotangent (`_BlockGather`)."""
+
+    @staticmethod
+    def forward(ctx, data, ids, order, offsets):
+        ctx.save_for_backward(ids, order, offsets)
+        rows = data if order is None else data.index_select(0, order)
+        return torch.segment_reduce(rows, "sum", offsets=offsets, axis=0,
+                                    unsafe=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ids, order, offsets = ctx.saved_tensors
+        return _BlockGather.apply(grad, ids, order, offsets), None, None, \
+            None
+
+
+class _BlockGather(torch.autograd.Function):
+    """xb[ids]: each tile's block row; its backward sums each block's tile
+    cotangents in the fixed order of `_BlockSum`."""
+
+    @staticmethod
+    def forward(ctx, xb, ids, order, offsets):
+        ctx.save_for_backward(ids, order, offsets)
+        return xb.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ids, order, offsets = ctx.saved_tensors
+        return _BlockSum.apply(grad, ids, order, offsets), None, None, None
+
+
 def tiled_lit_to_clause(x: torch.Tensor, ti: TiledIncidence,
                         precision: str | None = None) -> torch.Tensor:
     """[num_literals, F] column features -> [num_clauses, F] row sums via
     the tile products."""
     Fd = x.shape[1]
     pad = ti.n_col_blocks * ti.tl - x.shape[0]
-    xb = F.pad(x, (0, 0, 0, pad)).reshape(ti.n_col_blocks, ti.tl, Fd)
-    g = xb.index_select(0, ti.col_blk)                       # [T, tl, F]
-    prod = _tile_product(ti.blocks, g, False, precision)     # [T, tc, F]
-    out = prod.new_zeros((ti.n_row_blocks, ti.tc, Fd))
-    out = out.index_add(0, ti.row_blk, prod)
+    xb = F.pad(x, (0, 0, 0, pad)).reshape(ti.n_col_blocks, ti.tl * Fd)
+    g = _BlockGather.apply(xb, ti.col_blk, ti.col_perm, ti.col_offsets)
+    prod = _tile_product(ti.blocks, g.reshape(-1, ti.tl, Fd), False,
+                         precision)                          # [T, tc, F]
+    out = _BlockSum.apply(prod.reshape(-1, ti.tc * Fd), ti.row_blk, None,
+                          ti.row_offsets)
     return out.reshape(ti.n_row_blocks * ti.tc, Fd)[:ti.num_clauses]
 
 
@@ -181,9 +243,10 @@ def tiled_clause_to_lit(y: torch.Tensor, ti: TiledIncidence,
     transpose SpMM)."""
     Fd = y.shape[1]
     pad = ti.n_row_blocks * ti.tc - y.shape[0]
-    yb = F.pad(y, (0, 0, 0, pad)).reshape(ti.n_row_blocks, ti.tc, Fd)
-    g = yb.index_select(0, ti.row_blk)                       # [T, tc, F]
-    prod = _tile_product(ti.blocks, g, True, precision)      # [T, tl, F]
-    out = prod.new_zeros((ti.n_col_blocks, ti.tl, Fd))
-    out = out.index_add(0, ti.col_blk, prod)
+    yb = F.pad(y, (0, 0, 0, pad)).reshape(ti.n_row_blocks, ti.tc * Fd)
+    g = _BlockGather.apply(yb, ti.row_blk, None, ti.row_offsets)
+    prod = _tile_product(ti.blocks, g.reshape(-1, ti.tc, Fd), True,
+                         precision)                          # [T, tl, F]
+    out = _BlockSum.apply(prod.reshape(-1, ti.tl * Fd), ti.col_blk,
+                          ti.col_perm, ti.col_offsets)
     return out.reshape(ti.n_col_blocks * ti.tl, Fd)[:ti.num_literals]

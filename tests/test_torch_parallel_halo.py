@@ -10,6 +10,9 @@ tests/test_halo.py's batch, with the draws of JAX's key schedule replayed:
 - every gradient of the step against JAX's single-device gradient, to
   1e-5 of each tensor's largest entry, for JAX's cases (4, supervised),
   (8, supervised), (4, unsupervised), and the all-reduce step as well;
+- the all-reduce step's gradient under unsupervised `use_linear_loss`
+  (which the halo step refuses, as JAX's does) against JAX's GSPMD
+  gradient on 4 virtual devices, to the same 1e-5;
 - the params after one AdaBelief step against JAX's halo step at its own
   rtol 1e-3 (tests/test_halo.py);
 - the reference's fault: JAX's halo step under plain SGD moves the params
@@ -77,7 +80,10 @@ def world_inputs():
                                   (False, True), (False, False)):
         cases.append(("gp", gp_inputs(4, supervised, with_halo)))
         checks.append(("gp", dict(n=4, supervised=supervised,
-                                  halo=with_halo)))
+                                  halo=with_halo, linear=False)))
+    cases.append(("gp", gp_inputs(4, False, False, linear=True)))
+    checks.append(("gp", dict(n=4, supervised=False, halo=False,
+                              linear=True)))
 
     # -- halo_exchange on closure-masked partials (tests/test_halo.py:54)
     hjb, htb = batch_pair(*random_formulas(1), **BUCKET)
@@ -89,12 +95,17 @@ def world_inputs():
     return cases, checks
 
 
-def gp_inputs(n, supervised, with_halo):
-    jcfg = jqs.QuerySATConfig(feature_maps=8, query_maps=8, train_rounds=3,
-                              test_rounds=3, supervised=supervised)
-    tcfg = tqs.QuerySATConfig(feature_maps=8, query_maps=8, train_rounds=3,
-                              test_rounds=3, supervised=supervised)
+def gp_inputs(n, supervised, with_halo, linear=False):
+    kw = dict(feature_maps=8, query_maps=8, train_rounds=3, test_rounds=3,
+              supervised=supervised, use_linear_loss=linear)
+    jcfg, tcfg = jqs.QuerySATConfig(**kw), tqs.QuerySATConfig(**kw)
     jparams = jqs.query_sat_init(jax.random.key(0), jcfg)
+    if linear:
+        # confident logits, so that clauses fall short of one true literal
+        # and linear_loss's clause term (the sharded part) is not zero
+        out = jparams["variables_output"]
+        jparams = dict(jparams, variables_output=dict(
+            out, w=out["w"][:-1] + [out["w"][-1] * 30.0]))
     jb, tb = batch_pair(*random_formulas(5), **BUCKET)
     _, subkey = jax.random.split(jax.random.key(7))
     draws = jax_query_draws(subkey, jcfg, jb, jb.solutions)
@@ -156,8 +167,8 @@ _SINGLE_GRADS: dict = {}
 
 def jax_single_grads(j):
     """JAX's single-device loss and gradients of a case (every case of one
-    `supervised` value has the same config, batch and key: computed once)."""
-    key = j["jcfg"].supervised
+    config has the same batch and key: computed once)."""
+    key = (j["jcfg"].supervised, j["jcfg"].use_linear_loss)
     if key not in _SINGLE_GRADS:
         def loss_fn(p):
             return jqs.query_sat_apply(p, j["jcfg"], j["jbatch"],
@@ -182,13 +193,13 @@ def jax_halo_step(j, n, optimizer):
         float(out["loss"])
 
 
-def gp_case(world4, supervised, with_halo):
+def gp_case(world4, supervised, with_halo, linear=False):
     cases, checks, results = world4
     for i, (name, chk) in enumerate(checks):
         if name == "gp" and chk["supervised"] == supervised and \
-                chk["halo"] == with_halo:
+                chk["halo"] == with_halo and chk["linear"] == linear:
             return cases[i][1], [r[i] for r in results]
-    raise KeyError((supervised, with_halo))
+    raise KeyError((supervised, with_halo, linear))
 
 
 GP_CASES = [(4, True, False), (4, True, True), (8, True, True),
@@ -211,6 +222,39 @@ def test_sharded_step_gradient_is_the_single_device_gradient(
         np.testing.assert_allclose(r["loss"], loss, rtol=1e-5)
         assert_grads_close(r["grads"], grads, names)
     # every rank applies the same summed gradient
+    for r in res[1:]:
+        for a, b in zip(r["grads"], res[0]["grads"]):
+            np.testing.assert_array_equal(a, b)
+
+
+def jax_gspmd_grads(j, n):
+    """The loss and gradients of JAX's GSPMD step (`make_gp_train_step`'s
+    loss function) on `n` virtual devices: the batch's edge and clause
+    arrays sharded over the graph axis, the rest replicated."""
+    mesh = make_mesh(n_data=1, n_graph=n, devices=jax.devices()[:n])
+    sharded = jgp.shard_gp_batch(j["jbatch"], mesh)
+
+    def loss_fn(p, batch):
+        return jqs.query_sat_apply(p, j["jcfg"], batch, j["subkey"],
+                                   training=True, labels=batch.solutions)[1]
+
+    loss, g = jax.jit(jax.value_and_grad(loss_fn))(j["jparams"], sharded)
+    return float(loss), [np.asarray(x) for x in jax.tree.leaves(g)]
+
+
+def test_sharded_linear_loss_gradient_is_jaxs_gspmd_gradient(world4):
+    """Unsupervised `use_linear_loss` on 4 clause shards: the clause term
+    completed over the group, the replicated literal term counted once.
+    Every rank's gradient equals JAX's GSPMD gradient."""
+    inp, res = gp_case(world4, False, False, linear=True)
+    loss, grads = jax_gspmd_grads(inp["jax"], 4)
+    names = leaf_names(inp["jax"]["jparams"])
+    single_loss, single = jax_single_grads(inp["jax"])
+    np.testing.assert_allclose(loss, single_loss, rtol=1e-5)
+    assert_grads_close(grads, single, names)
+    for r in res:
+        np.testing.assert_allclose(r["loss"], loss, rtol=1e-5)
+        assert_grads_close(r["grads"], grads, names)
     for r in res[1:]:
         for a, b in zip(r["grads"], res[0]["grads"]):
             np.testing.assert_array_equal(a, b)

@@ -16,8 +16,14 @@ largest |input| times the largest clause degree, bf16's rounding bound, and
 its gradient as well. One planned QuerySAT train step through the tiles,
 and one tiled ANF train step, give the TPU package's new params (rtol 1e-5,
 atol 1e-6) from the same state and draws.
+
+The sums that once used atomics take one fixed order: on a 17-round SHA-1
+system, the plain AND -> variable scatter and the tiled pair (forward and
+backward, with the tiles as built and shuffled inside their row blocks)
+equal the TPU package's at 1e-6, and two calls agree bit for bit.
 """
 
+import dataclasses
 import functools
 import importlib
 
@@ -266,3 +272,96 @@ def test_tiled_train_step_gives_the_tpu_packages_new_params(kind,
     assert max(float(np.abs(w - o).max()) for o, w in zip(old, want)) > 1e-5
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+
+
+# -- fixed-order sums in place of atomics, on an r17 SHA-1 system ----------
+
+R17_BUCKET = dict(max_vars=4096, max_ands=4224, max_clauses=4352,
+                  max_edges=16384, max_graphs=1)
+
+
+@pytest.fixture(scope="module")
+def r17_pair():
+    """One 17-round SHA-1 preimage system (the flagship's data, one system
+    a batch)."""
+    from diffusionsat_torch.data.sha_anf import Sha1AnfInstances
+    items = list(Sha1AnfInstances(rounds=17, min_free_bits=24,
+                                  max_free_bits=40, train_size=1,
+                                  seed=3).train_generator())
+    return anf_batch_pair(items, **R17_BUCKET)
+
+
+def test_and_scatter_equals_the_tpu_packages_on_an_r17_batch(r17_pair):
+    """The plain AND -> variable scatter (operand slots sorted once, a
+    fixed-order segment sum) against JAX's two `.at[].add` scatters, and
+    its gradient (a gather) against JAX's, at 1e-6."""
+    jb, tb = r17_pair
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(tb.A, 8)).astype(np.float32) * \
+        np_of(tb.and_mask)[:, None]
+    w = rng.normal(size=(tb.V, 8)).astype(np.float32)
+    a1, a2 = (np.maximum(np.asarray(a) - 1, 0) for a in (jb.and1, jb.and2))
+
+    def jax_scatter(v):
+        return jnp.zeros((jb.V, 8)).at[a1].add(v).at[a2].add(v)
+
+    slots = tanf_model.and_operand_slots(
+        torch.clamp(tb.and1 - 1, min=0), torch.clamp(tb.and2 - 1, min=0))
+    a = torch.from_numpy(x).requires_grad_(True)
+    got = tanf_model.scatter_ands(a, slots, tb.V)
+    (got * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(np_of(got), np.asarray(jax_scatter(
+        jnp.asarray(x))), **F32_TOL)
+    want_grad = jax.grad(lambda v: jnp.sum(jax_scatter(v) * w))(
+        jnp.asarray(x))
+    np.testing.assert_allclose(np_of(a.grad), np.asarray(want_grad),
+                               **F32_TOL)
+
+
+def _shuffled_within_row_blocks(tt, seed):
+    """The same tiles in another order inside each row block (row_blk stays
+    sorted, col_blk is scrambled), with the column permutation rebuilt."""
+    rng = np.random.default_rng(seed)
+    row = np_of(tt.row_blk)
+    order = np.lexsort((rng.random(row.size), row))
+    row, col = row[order], np_of(tt.col_blk)[order]
+    return dataclasses.replace(
+        tt, blocks=tt.blocks[order], row_blk=torch.from_numpy(row),
+        col_blk=torch.from_numpy(col), **ttiled.tile_orders(
+            row, col, tt.n_row_blocks, tt.n_col_blocks))
+
+
+@pytest.mark.parametrize("shuffled", [False, True])
+def test_tiled_pair_on_an_r17_batch_is_fixed_order(r17_pair, shuffled):
+    """The tiled pair over the r17 system's membership tiles equals JAX's
+    at f32, forward and backward, with the tiles in the build's order and
+    shuffled inside their row blocks; two calls agree bit for bit."""
+    jb, tb = r17_pair
+    jt, tt = _tiles("anf", jb, tb)
+    if shuffled:
+        tt = _shuffled_within_row_blocks(tt, 17)
+        assert np.any(np.diff(np_of(tt.col_blk)[:tt.n_real_tiles]) < 0)
+    rng = np.random.default_rng(19)
+    x = rng.normal(size=(tt.num_literals, 8)).astype(np.float32)
+    y = rng.normal(size=(tt.num_clauses, 8)).astype(np.float32)
+    for fn_t, fn_j, inp, out_rows in (
+            (ttiled.tiled_lit_to_clause, jtiled.tiled_lit_to_clause, x,
+             tt.num_clauses),
+            (ttiled.tiled_clause_to_lit, jtiled.tiled_clause_to_lit, y,
+             tt.num_literals)):
+        wt = rng.normal(size=(out_rows, 8)).astype(np.float32)
+        runs = []
+        for _ in range(2):
+            a = torch.from_numpy(inp).requires_grad_(True)
+            out = fn_t(a, tt, "highest")
+            (out * torch.from_numpy(wt)).sum().backward()
+            runs.append((np_of(out), np_of(a.grad)))
+        np.testing.assert_array_equal(runs[0][0], runs[1][0])
+        np.testing.assert_array_equal(runs[0][1], runs[1][1])
+        np.testing.assert_allclose(
+            runs[0][0], np.asarray(fn_j(jnp.asarray(inp), jt, HIGHEST)),
+            **F32_TOL)
+        want_grad = jax.grad(lambda v: jnp.sum(
+            fn_j(v, jt, HIGHEST) * wt))(jnp.asarray(inp))
+        np.testing.assert_allclose(runs[0][1], np.asarray(want_grad),
+                                   **F32_TOL)
