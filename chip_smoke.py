@@ -52,8 +52,10 @@ Phases, each of which raises (exit code 1) on failure:
    self-conditioning step 256 times); `python -m
    diffusionsat_torch.diffusion_training` in-process in both layouts (20
    steps) with one eval, a checkpoint, a restore (4 steps more) and the
-   exported params read back by the solving eval; and a profile of one
-   train step per layout;
+   exported params read back by the solving eval; the flat run's checkpoint
+   directory read by the solving eval (`--model_ckpt <run>/ckpt`) must give
+   exactly the accuracy and the launches of the params exported at the same
+   step; and a profile of one train step per layout;
 7. uniformity (a main path), with the sampling flagship
    `query_sat_3sat_diffusion_mlk64_iso45.npz` at full width, 32 diffusion
    steps x 32 rounds: `python -m diffusionsat_torch.uniformity_benchmark`
@@ -490,7 +492,7 @@ def split_jobs(data_dir: Path, workers: int | None = None) -> dict:
     `data_dir` (or reads it back from there) and returns the batches.
     `workers` caps the generator processes (None: the host's cores); the
     splits do not depend on it."""
-    from diffusionsat_torch import anf_eval, diffusion_training, hyperopt
+    from diffusionsat_torch import anf_eval, build_3sat_cache, hyperopt
     from diffusionsat_torch import main as generic
     from diffusionsat_torch import solve_eval
     from diffusionsat_torch.config import parse_config
@@ -505,9 +507,10 @@ def split_jobs(data_dir: Path, workers: int | None = None) -> dict:
             gen_workers=workers).test_data())
 
     def script_split(argv):
-        # the training split, and the test split of the script's eval
-        ds = diffusion_training.build_dataset(parse_config(argv + flags))
-        return list(ds.train_data()), list(ds.test_data())
+        # the training split, and the test split of the script's eval, as
+        # the flagship's cache builder makes them
+        train, test = build_3sat_cache.build(parse_config(argv + flags))
+        return list(train), list(test)
 
     def main_split():
         cfg = parse_config(main_argv(data_dir, data_dir / "main_runs",
@@ -603,7 +606,8 @@ class Splits:
                 _, made, seconds = line.split()
                 self.made[made] = float(seconds)
         t1 = time.perf_counter()
-        out = self.jobs[name]()
+        with contextlib.redirect_stdout(sys.stderr):
+            out = self.jobs[name]()
         return out, dict(made_s=self.made.get(name), waited_s=t1 - t0,
                          read_s=time.perf_counter() - t1)
 
@@ -4320,6 +4324,38 @@ def run(argv: list[str], splits: Splits, baseline: Path | None = None
             launched, 2 * LAUNCHES_PER_TRAIN_STEP):
         raise RuntimeError(f"train_selfsup_flat: launches {launched}")
 
+    def script_ckpt_dir(ckpt_dir, exported):
+        """The solving eval of a run's checkpoint directory (its newest
+        checkpoint, which the restore run wrote) against the params that
+        run exported at the same step: the same accuracies (per graph and
+        per variable: 24 steps solve few graphs), the same launches."""
+        step = max(int(p.stem.split("_")[1])
+                   for p in ckpt_dir.glob("ckpt_*.npz"))
+        exported_step = load_params(exported)[1]["step"]
+        got = {}
+        for form, path in (("ckpt_dir", ckpt_dir), ("npz", exported)):
+            segsum.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = solve_eval.main([
+                "--model_ckpt", str(path), "--train_size", str(TRAIN_SIZE),
+                "--test_size", "2000", "--max_batches", "2", "--data_dir",
+                str(data_dir), "--device", str(dev)])
+            got[form] = dict(total_accuracy=res["total_accuracy"],
+                             accuracy=res["accuracy"],
+                             launches=dict(segsum.LAUNCHES),
+                             wall_s=time.perf_counter() - t0)
+        emit(phase="train_script_ckpt_dir", step=step,
+             exported_step=exported_step, **got)
+        if step != exported_step or \
+                step != SCRIPT_STEPS + SCRIPT_RESTORE_STEPS:
+            raise RuntimeError(f"train_script_ckpt_dir: newest checkpoint "
+                               f"{step}, exported {exported_step}")
+        for key in ("total_accuracy", "accuracy", "launches"):
+            if got["ckpt_dir"][key] != got["npz"][key]:
+                raise RuntimeError(f"train_script_ckpt_dir: {key} differs")
+        if min(got["ckpt_dir"]["launches"].values()) <= 0:
+            raise RuntimeError("train_script_ckpt_dir: no kernel launch")
+
     # -- the training script, in-process, both layouts -------------------------
     # the runs' files go under the checkout and are removed afterwards
     train_dir = ROOT / "runs" / "chip_smoke"
@@ -4381,6 +4417,8 @@ def run(argv: list[str], splits: Splits, baseline: Path | None = None
             if min(launched.values()) < n_steps * LAUNCHES_PER_TRAIN_STEP:
                 raise RuntimeError(
                     f"train_script (flat): launches {launched}")
+            script_ckpt_dir(run_dir / "ckpt",
+                            Path(final2["run_dir"]) / "params.npz")
     launches_of["train_script"] = script_launches
     shutil.rmtree(train_dir)
 

@@ -11,6 +11,7 @@ on the flat chain with the segsum kernel.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -295,16 +296,14 @@ class DiffusionSampler:
                         cfg: QuerySATConfig | None = None,
                         device: str | torch.device = "cuda", **kwargs
                         ) -> "DiffusionSampler":
-        """Load a portable `.npz` params file and sample the given DIMACS
-        formula."""
-        from diffusionsat_torch.train.checkpoint import (
-            load_params,
-            params_from_numpy,
-        )
+        """Restore the newest checkpoint of a training run's checkpoint
+        directory, or a portable `.npz` params file (whose recorded widths
+        win over `cfg`'s), and sample the given DIMACS formula."""
+        from diffusionsat_torch.train.checkpoint import load_model
 
         cfg = cfg or QuerySATConfig(test_rounds=32)
-        tree, _meta = load_params(model_path)
-        params = params_from_numpy(tree, device)
+        params, cfg = load_model(model_path, device,
+                                 **dataclasses.asdict(cfg))
         return cls(params, cfg, CNF.load(dimacs_filename), device=device,
                    **kwargs)
 

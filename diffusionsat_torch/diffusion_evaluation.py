@@ -46,7 +46,8 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--dimacs", required=True)
     p.add_argument("--model_ckpt", default=None,
-                   help="portable .npz params file")
+                   help="<ckpt dir | .npz>: a training run's "
+                        "checkpoint directory or a portable params file")
     p.add_argument("--k", type=int, default=10,
                    help="samples per solution (n = k * n_solutions)")
     p.add_argument("--diffusion_steps", type=int, default=32)
@@ -59,9 +60,6 @@ def main(argv=None):
     if args.model_ckpt:
         from diffusionsat_torch.diffusion.sampler import DiffusionSampler
         from diffusionsat_torch.train.checkpoint import load_model
-
-        if not args.model_ckpt.endswith(".npz"):
-            p.error("--model_ckpt must be an .npz params file")
         params, cfg = load_model(args.model_ckpt, args.device,
                                  test_rounds=args.test_rounds)
         sampler = DiffusionSampler(

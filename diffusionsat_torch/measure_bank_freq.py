@@ -54,7 +54,8 @@ PART_SETTINGS = ("chains", "diffusion_steps", "test_rounds", "model_ckpt",
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--model_ckpt", required=True,
-                   help="portable .npz params file")
+                   help="<ckpt dir | .npz>: a training run's "
+                        "checkpoint directory or a portable params file")
     p.add_argument("--chains", type=int, default=96,
                    help="samples per formula (one per reverse chain)")
     p.add_argument("--chunk", type=int, default=32,

@@ -251,3 +251,8 @@ class SimpleNeuroSATConfig(NeuroCoreConfig):
 
 simple_neurosat_init = neurocore_init
 simple_neurosat_apply = neurocore_apply
+
+
+def simple_neurosat_config(**kw) -> NeuroCoreConfig:
+    """A NeuroCore config with the query mechanism on: SimpleNeuroSAT's."""
+    return NeuroCoreConfig(use_query=True, **kw)

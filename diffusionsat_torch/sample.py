@@ -1,13 +1,14 @@
 """Draw SAT solution samples from a trained model via reverse diffusion.
 
     python -m diffusionsat_torch.sample --dimacs f.cnf \
-        --model_ckpt pretrained/query_sat_3sat_diffusion_mlk64.npz
+        --model_ckpt runs/.../ckpt        # or a portable .npz params file
 
-Counterpart of the TPU package's root `diffusion_sampler.py`. It reads
-`.npz` params files only and runs on the card (or on the CPU with
-`--device cpu`). The sampler picks the layout itself: the dense block chain
-for a formula of at most 128 variables and 576 clauses, the flat chain with
-the segsum kernel above that. `--refine mh` runs a Metropolis chain over
+Counterpart of the TPU package's root `diffusion_sampler.py`. It reads a
+training run's checkpoint directory (its newest checkpoint) or an `.npz`
+params file and runs on the card (or on the CPU with `--device cpu`). The
+sampler picks the layout itself: the dense block chain for a formula of at
+most 128 variables and 576 clauses, the flat chain with the segsum kernel
+above that. `--refine mh` runs a Metropolis chain over
 the solution set from every sample on the host (`uniformity/samplers.py`
 `MetropolisRefiner`).
 """
@@ -26,7 +27,8 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--dimacs", required=True)
     p.add_argument("--model_ckpt", required=True,
-                   help="portable .npz params file")
+                   help="<ckpt dir | .npz>: a training run's "
+                        "checkpoint directory or a portable params file")
     p.add_argument("--n_samples", type=int, default=100)
     p.add_argument("--diffusion_steps", type=int, default=32)
     p.add_argument("--test_rounds", type=int, default=32)
@@ -48,8 +50,6 @@ def main(argv=None):
     p.add_argument("--mh_steps", type=int, default=None,
                    help="MH chain length (default 20 * n_vars)")
     args = p.parse_args(argv)
-    if not args.model_ckpt.endswith(".npz"):
-        p.error("--model_ckpt must be an .npz params file")
 
     cfg = QuerySATConfig(feature_maps=args.feature_maps,
                          query_maps=args.query_maps,

@@ -1,13 +1,16 @@
 """Solving eval: noise pinned at 1.0 over the whole held-out test split.
 
     python -m diffusionsat_torch.solve_eval \
-        --model_ckpt pretrained/query_sat_3sat_diffusion_mlk64.npz \
+        --model_ckpt <ckpt dir | .npz> \
         [--layout flat|dense] [--device cuda] [--out SOLVE_EVAL.json]
 
 Counterpart of the TPU package's root `solve_eval.py`. It pins the
 diffusion conditioning noise (1.0 = pure solving: no label signal reaches
 the model), runs the test split of the threshold 3-SAT dataset and reports
-the fraction of graphs fully solved (`total_accuracy`).
+the fraction of graphs fully solved (`total_accuracy`). `--model_ckpt`
+takes a training run's `ckpt/` directory (its newest checkpoint, at the
+`QuerySATConfig` defaults' widths) or a portable `.npz` params file, such
+as `pretrained/query_sat_3sat_diffusion_mlk64.npz`.
 
 The split is generated at first use by the native solver and cached under
 `--data_dir` in the TPU package's cache format and file name. It is a draw
@@ -33,12 +36,9 @@ from diffusionsat_torch.data.generators import (
 from diffusionsat_torch.device import resolve_device
 from diffusionsat_torch.graph.batch import BucketSpec
 from diffusionsat_torch.graph.dense_batch import densify_batches_quantized
-from diffusionsat_torch.models.query_sat import (
-    QuerySATConfig,
-    query_sat_apply,
-)
+from diffusionsat_torch.models.query_sat import query_sat_apply
 from diffusionsat_torch.models.query_sat_dense import query_sat_dense_apply
-from diffusionsat_torch.train.checkpoint import load_params, params_from_numpy
+from diffusionsat_torch.train.checkpoint import load_model
 from diffusionsat_torch.train.loop import evaluate_metrics, plan_batches
 from diffusionsat_torch.train.metrics import SATAccuracy, StepStatistics
 
@@ -67,7 +67,8 @@ def build_dataset(train_size: int, test_size: int, min_vars: int,
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--model_ckpt", required=True,
-                   help="portable .npz params file")
+                   help="<ckpt dir | .npz>: a training run's "
+                        "checkpoint directory or a portable params file")
     p.add_argument("--train_size", type=int, default=60000,
                    help="must match the training run so the cached "
                         "dataset (and its test split) is reused")
@@ -103,9 +104,8 @@ def main(argv=None):
                               args.label_samples).test_data()
     print(f"test batches: {len(test_data)}", flush=True)
 
-    model_cfg = QuerySATConfig(test_rounds=args.test_rounds)
-    tree, _meta = load_params(args.model_ckpt)
-    params = params_from_numpy(tree, dev)
+    params, model_cfg = load_model(args.model_ckpt, dev,
+                                   test_rounds=args.test_rounds)
 
     batches = list(test_data)
     if args.layout == "dense":

@@ -129,17 +129,27 @@ def params_like(template: Any, tree: Any) -> Any:
 
 def load_model(path: str | Path, device: str | torch.device = "cuda",
                **cfg_kw) -> tuple[Any, Any]:
-    """`(params on device, QuerySATConfig)` of an `.npz` params file: the
-    config takes the widths the file's metadata records (the default
-    widths where it records none) and `cfg_kw` for the rest."""
-    from diffusionsat_torch.models.query_sat import QuerySATConfig
+    """`(params on device, QuerySATConfig)` of a QuerySAT model, from an
+    `.npz` params file or from a `CheckpointManager` directory (its newest
+    checkpoint), as every `--model_ckpt` flag takes them. An `.npz` file's
+    config takes the widths its metadata records (`cfg_kw`'s, else the
+    defaults, where it records none); a directory records none, so its
+    config is `QuerySATConfig(**cfg_kw)` and a checkpoint of other widths
+    raises `params_like`'s shape error."""
+    from diffusionsat_torch.models.query_sat import (
+        QuerySATConfig,
+        query_sat_init,
+    )
 
+    if not str(path).endswith(".npz"):
+        cfg = QuerySATConfig(**cfg_kw)
+        return restore_model_params(path, query_sat_init, cfg, device), cfg
     tree, meta = load_params(path)
     recorded = meta.get("config", {})
     widths = {k: recorded[k] for k in ("feature_maps", "query_maps",
                                        "logit_maps") if k in recorded}
-    return params_from_numpy(tree, device), QuerySATConfig(**widths,
-                                                           **cfg_kw)
+    return params_from_numpy(tree, device), QuerySATConfig(
+        **{**cfg_kw, **widths})
 
 
 def restore_model_params(model_ckpt: str | Path, init_fn, cfg,
@@ -148,13 +158,17 @@ def restore_model_params(model_ckpt: str | Path, init_fn, cfg,
     `CheckpointManager` directory, on `device`, in the module order of
     `init_fn(generator, cfg)`'s tree (the counterpart of the TPU package's
     `restore_model_params`; its own checkpoint directories are another
-    format)."""
+    format). A path that is no directory, or a directory that holds no
+    checkpoint, raises FileNotFoundError; reading never creates it."""
     from diffusionsat_torch.device import resolve_device
     from diffusionsat_torch.train.adabelief import adabelief
 
     dev = resolve_device(device)
+    is_npz = str(model_ckpt).endswith(".npz")
+    if not is_npz and not Path(model_ckpt).is_dir():
+        raise FileNotFoundError(f"no checkpoint in {model_ckpt}")
     template = init_fn(torch.Generator(device=dev).manual_seed(0), cfg)
-    if str(model_ckpt).endswith(".npz"):
+    if is_npz:
         tree, _meta = load_params(model_ckpt)
         return params_like(template, params_from_numpy(tree, dev))
     restored = CheckpointManager(model_ckpt).restore(TrainState(

@@ -152,7 +152,8 @@ def sampler_factories(cnf: CNF, fi: int, selected: set[str] | None,
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--model_ckpt", default=None,
-                   help="portable .npz params file")
+                   help="<ckpt dir | .npz>: a training run's "
+                        "checkpoint directory or a portable params file")
     p.add_argument("--n_formulas", type=int, default=8)
     p.add_argument("--skip_formulas", type=int, default=0,
                    help="skip the first N formulas of the deterministic "
@@ -181,9 +182,6 @@ def main(argv=None):
         from diffusionsat_torch.device import resolve_device
         from diffusionsat_torch.diffusion.sampler import DiffusionSampler
         from diffusionsat_torch.train.checkpoint import load_model
-
-        if not args.model_ckpt.endswith(".npz"):
-            p.error("--model_ckpt must be an .npz params file")
         dev = resolve_device(args.device)
         params, cfg = load_model(args.model_ckpt, dev,
                                  test_rounds=args.test_rounds)
