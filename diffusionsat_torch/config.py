@@ -123,9 +123,17 @@ class RunConfig:
     gen_workers: int = 0
 
     def run_dir(self) -> Path:
+        """A new directory for the run, named by the second it starts; a
+        second run in the same second takes a `-<n>` suffix rather than
+        writing into the first's directory."""
         stamp = time.strftime("%Y%m%d_%H%M%S")
         label = f"_{self.label}" if self.label else ""
-        return Path(self.train_dir) / f"{self.model}_{self.task}{label}_{stamp}"
+        name = f"{self.model}_{self.task}{label}_{stamp}"
+        base = Path(self.train_dir) / name
+        path, n = base, 1
+        while path.exists():
+            path, n = base.with_name(f"{base.name}-{n}"), n + 1
+        return path
 
 
 # the registries' names, which the three selection flags accept

@@ -17,9 +17,12 @@ dispatch here is one CUDA graph replay:
 - `run_rounds`: the round loop of the three models in inference: one graph
   per round body and shape, replayed `rounds` times, with the early-exit
   flag read between replays as the TPU package's `while_loop` tests it.
-- Host-side launch counts (`ops/segsum.LAUNCHES`): the launches a graph
-  captured are credited once per replay; the warm-up and the capture count
-  nothing.
+- Counters (`tracing.py`'s families, `ops/segsum.LAUNCHES` among them):
+  what a graph's capture counted is credited once per replay; the warm-up
+  and the capture count nothing. The `graph` family counts the captures
+  and the host time inside their recording blocks.
+- Spans (`tracing.py`, while a profiler records): `graph.lookup`,
+  `graph.copy_in`, `graph.replay` and `graph.copy_out` of each call.
 
 On CUDA the graphs are on unless `DSAT_EAGER=1` (`graphs_enabled`). On the
 CPU nothing is captured: a "replay" calls the function on the static
@@ -34,13 +37,17 @@ import collections
 import contextlib
 import dataclasses
 import os
+import time
 from typing import Any, Callable, Iterator
 
 import torch
 
+from diffusionsat_torch import tracing
 from diffusionsat_torch.ops import segsum
 
 EAGER_ENV = "DSAT_EAGER"
+# graphs recorded, and ns of host time inside their recording blocks
+GRAPHS = tracing.family("graph", ("captures", "record_ns"))
 
 
 def graphs_enabled(device: torch.device) -> bool:
@@ -186,12 +193,13 @@ class CapturedGraph:
         self.generator = (torch.Generator(device=device) if with_generator
                           else None)
         self._fn = fn
+        # what the capture counted, by counter family: credited per replay
+        self.counts: dict[str, dict[str, int]] = {}
         if device.type != "cuda":
             # no graph on the CPU: each replay calls fn on the buffers
             self.graph = None
-            self.launches: dict[str, int] = {}
             return
-        counts = dict(segsum.LAUNCHES)
+        before = tracing.counters()
         rng = torch.cuda.get_rng_state(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
@@ -199,17 +207,23 @@ class CapturedGraph:
             (warmup or fn)(static, self.generator)
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.set_rng_state(rng, device)
-        warm = dict(segsum.LAUNCHES)
+        warm = tracing.counters()
         self.graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             self.graph.register_generator_state(self.generator)
+        t0 = time.perf_counter_ns()
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             fn(static, self.generator)
-        self.launches = {k: n - warm.get(k, 0)
-                         for k, n in segsum.LAUNCHES.items()
-                         if n != warm.get(k, 0)}
-        segsum.LAUNCHES.clear()
-        segsum.LAUNCHES.update(counts)
+        recorded = time.perf_counter_ns() - t0
+        self.counts = tracing.changes_since(warm)
+        tracing.restore(before)
+        GRAPHS["captures"] += 1
+        GRAPHS["record_ns"] += recorded
+
+    @property
+    def segsum_launches(self) -> int:
+        """Segsum kernel launches a replay runs."""
+        return sum(self.counts.get(segsum.LAUNCH_FAMILY, {}).values())
 
     @contextlib.contextmanager
     def drawing_from(self, generator: torch.Generator | None
@@ -230,8 +244,7 @@ class CapturedGraph:
             self._fn(self.static, self.generator)
             return
         self.graph.replay()
-        for k, n in self.launches.items():
-            segsum.LAUNCHES[k] = segsum.LAUNCHES.get(k, 0) + n
+        tracing.credit(self.counts)
 
 
 # ---------------------------------------------------------------------------
@@ -264,33 +277,41 @@ def run_rounds(make_round: Callable, key, ctx, carry, rounds: int,
     first round that sets the carry's last entry (the done flag).
     """
     noise0 = None if round_noise is None else round_noise[0]
-    sig = (make_round.__code__, key, tree_signature((ctx, carry, noise0)),
-           generator is None)
-    graph = _ROUND_GRAPHS.pop(sig, None)
-    if graph is None:
-        def one_round(static, gen):
-            sctx, scarry, snoise = static
-            out = make_round(sctx)(scarry, gen, snoise)
-            for s, o in zip(tree_leaves(scarry), tree_leaves(out),
-                            strict=True):
-                s.copy_(o)
+    with tracing.span("graph.lookup"):
+        sig = (make_round.__code__, key,
+               tree_signature((ctx, carry, noise0)), generator is None)
+        graph = _ROUND_GRAPHS.pop(sig, None)
+        if graph is None:
+            def one_round(static, gen):
+                sctx, scarry, snoise = static
+                out = make_round(sctx)(scarry, gen, snoise)
+                for s, o in zip(tree_leaves(scarry), tree_leaves(out),
+                                strict=True):
+                    s.copy_(o)
 
-        static = tree_map(torch.clone, (ctx, carry, noise0))
-        graph = CapturedGraph(one_round, static, noise0.device
-                              if noise0 is not None else
-                              tree_leaves(carry)[0].device,
-                              with_generator=generator is not None)
-        while len(_ROUND_GRAPHS) >= MAX_ROUND_GRAPHS:
-            _ROUND_GRAPHS.popitem(last=False)
-    _ROUND_GRAPHS[sig] = graph
+            static = tree_map(torch.clone, (ctx, carry, noise0))
+            graph = CapturedGraph(one_round, static, noise0.device
+                                  if noise0 is not None else
+                                  tree_leaves(carry)[0].device,
+                                  with_generator=generator is not None)
+            while len(_ROUND_GRAPHS) >= MAX_ROUND_GRAPHS:
+                _ROUND_GRAPHS.popitem(last=False)
+        _ROUND_GRAPHS[sig] = graph
     sctx, scarry, snoise = graph.static
-    tree_copy_(sctx, ctx)
-    tree_copy_(scarry, carry)
-    with graph.drawing_from(generator):
+    with tracing.span("graph.copy_in"):
+        tree_copy_(sctx, ctx)
+        tree_copy_(scarry, carry)
+    with tracing.span("graph.replay") as sp, graph.drawing_from(generator):
+        replays = 0
         for t in range(rounds):
             if snoise is not None:
                 snoise.copy_(round_noise[t])
             graph.replay()
+            replays += 1
             if early_exit and bool(scarry[-1]):
                 break
-    return tree_map(torch.clone, scarry)
+        if sp:
+            sp.set(replays=replays,
+                   segsum_launches=replays * graph.segsum_launches)
+    with tracing.span("graph.copy_out"):
+        return tree_map(torch.clone, scarry)

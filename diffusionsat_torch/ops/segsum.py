@@ -16,7 +16,8 @@ that own it, its rows added in plan order, no atomics.
   them all.
 - `gather_segsum`: the kernel's wrapper. It launches the kernel for CUDA
   tensors, runs `segsum_plain` for CPU tensors, and raises on anything
-  else. `LAUNCHES` counts kernel launches per direction.
+  else. `LAUNCHES` counts kernel launches per direction: the
+  `segsum.launches` family of `tracing.py`'s counters.
 - `plan_lit_to_clause` / `plan_clause_to_lit`: the differentiable pair the
   model and the losses call; each one's backward is the other direction,
   launched through the same kernel (and counted in `LAUNCHES` under the
@@ -59,6 +60,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from diffusionsat_torch import tracing
 from diffusionsat_torch.ops.graph_ops import (
     clause_to_lit,
     gather_rows,
@@ -86,7 +88,8 @@ ANF_DIRECTIONS = ("node_to_clause", "clause_to_node", "and_to_var",
 # kernel launches per plan direction; callers reset and read these to show
 # that a run went through the kernel. The CNF directions are always listed;
 # any other direction is listed from its first launch after a reset
-LAUNCHES: dict[str, int] = dict.fromkeys(CNF_DIRECTIONS, 0)
+LAUNCH_FAMILY = "segsum.launches"
+LAUNCHES: dict[str, int] = tracing.family(LAUNCH_FAMILY, CNF_DIRECTIONS)
 
 
 def reset_launch_counts() -> None:

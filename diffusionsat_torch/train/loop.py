@@ -20,6 +20,10 @@ pass a batch together with its plans (`plan_batches`) to build them once,
 before the timed or repeated work; a bare flat batch gets its plans built
 inside the step, once per call. A step made with `plan_kw="tiles"` takes a
 `TiledIncidence` instead (the tiled layout).
+
+While torch's profiler records, an evaluated batch records `eval.batch`
+and `predict.step` spans around the CUDA-graph layer's own, and a train
+chunk that layer's spans alone (`tracing.py`).
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from typing import Any, Callable, Iterable, Iterator, Sequence
 import torch
 from torch.utils import _pytree as pytree
 
-from diffusionsat_torch import cuda_graphs
+from diffusionsat_torch import cuda_graphs, tracing
 from diffusionsat_torch.diffusion.schedule import construct_training_input
 
 from diffusionsat_torch.device import resolve_device
@@ -290,11 +294,15 @@ def make_scanned_train_step_for(apply_fn: Callable, cfg, optimizer,
         return state, torch.stack(losses), out["steps_taken"]
 
     def graph_for(state, batch, plans, n):
-        sig = (cuda_graphs.tree_signature(
-            (state.params, state.opt_state, batch, plans)),
-            state.generator is None)
-        if sig in graphs:
+        with tracing.span("graph.lookup"):
+            sig = (cuda_graphs.tree_signature(
+                (state.params, state.opt_state, batch, plans)),
+                state.generator is None)
+            if sig not in graphs:
+                graphs[sig] = capture(state, batch, plans, n)
             return graphs[sig]
+
+    def capture(state, batch, plans, n):
         losses = torch.zeros((n,), device=dev)
         steps_taken = torch.zeros((), dtype=torch.int32, device=dev)
 
@@ -318,8 +326,7 @@ def make_scanned_train_step_for(apply_fn: Callable, cfg, optimizer,
         graph = cuda_graphs.CapturedGraph(
             chunk, static, dev, with_generator=state.generator is not None,
             warmup=one_step)
-        graphs[sig] = graph, losses, steps_taken
-        return graphs[sig]
+        return graph, losses, steps_taken
 
     def mega_step(state: TrainState, stacked, max_steps: int | None = None):
         batch, plans = split(stacked)
@@ -338,16 +345,21 @@ def make_scanned_train_step_for(apply_fn: Callable, cfg, optimizer,
                            "steps_taken": last}
         graph, losses, steps_taken = graph_for(state, batch, plans, n)
         opt, sbatch, splans = graph.static
-        cuda_graphs.tree_copy_(opt, (state.params, state.opt_state))
-        cuda_graphs.tree_copy_((sbatch, splans), (batch, plans))
-        with graph.drawing_from(state.generator):
+        with tracing.span("graph.copy_in"):
+            cuda_graphs.tree_copy_(opt, (state.params, state.opt_state))
+            cuda_graphs.tree_copy_((sbatch, splans), (batch, plans))
+        with tracing.span("graph.replay") as sp, \
+                graph.drawing_from(state.generator):
             graph.replay()
-        new_state = TrainState(params=opt[0], opt_state=opt[1],
-                               step=state.step + n,
-                               generator=state.generator)
-        return new_state, {"loss": losses.mean(),
-                           "loss_per_step": losses.clone(),
-                           "steps_taken": steps_taken.clone()}
+            if sp:
+                sp.set(replays=1, segsum_launches=graph.segsum_launches)
+        with tracing.span("graph.copy_out"):
+            new_state = TrainState(params=opt[0], opt_state=opt[1],
+                                   step=state.step + n,
+                                   generator=state.generator)
+            return new_state, {"loss": losses.mean(),
+                               "loss_per_step": losses.clone(),
+                               "steps_taken": steps_taken.clone()}
 
     return mega_step
 
@@ -512,6 +524,10 @@ def make_predict_step(cfg, apply_fn: Callable = query_sat_apply,
                      generator: torch.Generator | None,
                      plans: BatchPlans | None = None,
                      draws: Sequence[dict] | None = None):
+        with tracing.span("predict.step"):
+            return predict(params, batch, generator, plans, draws)
+
+    def predict(params, batch, generator, plans, draws):
         dense = isinstance(batch, DenseSatBatch)
         kw = dict(extra, device=dev)
         if with_plans and not dense:
@@ -580,10 +596,11 @@ def evaluate_metrics(params, cfg, data: Iterable[Batch | PlannedBatch],
         it = itertools.islice(it, max_batches)
     for item in it:
         batch, plans = item if isinstance(item, tuple) else (item, None)
-        batch = batch.to(dev)
-        out = predict_step(params, batch, generator, plans=plans)
-        for m in metrics:
-            m.update_state(out, batch)
+        with tracing.span("eval.batch"):
+            batch = batch.to(dev)
+            out = predict_step(params, batch, generator, plans=plans)
+            for m in metrics:
+                m.update_state(out, batch)
     values = {}
     for m in metrics:
         values.update(m.get_values(reset_state=True))

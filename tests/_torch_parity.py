@@ -1,7 +1,15 @@
 """Shared inputs for the port's parity tests: the same numpy-seeded
-formulas and params go through the TPU package and the torch port."""
+formulas and params go through the TPU package and the torch port.
+
+Importing this module also gives the test process one torch intra-op
+thread, and the processes its tests start the same (`OMP_NUM_THREADS`,
+unless it is set; spawned ranks set their own share). Every test process
+imports it while it collects the suite. Under six xdist workers, torch's
+default of a thread per core in each of them oversubscribed an 8-core
+host, and the suite ran about ten times slower than with one thread each."""
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -17,6 +25,9 @@ from diffusionsat_torch.train.checkpoint import params_from_numpy
 ASSETS = "diffusionsat_tpu/data/assets"
 FIELDS = [f.name for f in dataclasses.fields(SatBatch)]
 DENSE_FIELDS = [f.name for f in dataclasses.fields(DenseSatBatch)]
+
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+torch.set_num_threads(int(os.environ["OMP_NUM_THREADS"]))
 
 
 def random_formulas(seed, n_formulas=4, lo=4, hi=10, clause_ratio=3):

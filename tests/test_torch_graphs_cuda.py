@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from diffusionsat_torch import cuda_graphs
+from diffusionsat_torch import cuda_graphs, tracing
 from diffusionsat_torch.graph import dense_batch as tdb
 from diffusionsat_torch.graph.batch import BucketSpec, build_batch
 from diffusionsat_torch.models import query_sat as tqs
@@ -125,6 +125,41 @@ def test_graphed_rounds_equal_eager_rounds(cuda, layout):
     if layout == "flat":
         assert launches["graph"]["lit_to_clause"] > 0
     cuda_graphs.clear_round_graphs()
+
+
+@pytest.mark.cuda
+def test_a_captured_graph_credits_every_counter_family_per_replay(cuda):
+    plans = segsum.build_batch_plans(_flat(3), pad=True).to(cuda)
+    x = torch.randn((plans.lit_to_clause.num_sources, 16),
+                    generator=_gen(cuda, 0), device=cuda)
+    out = torch.zeros((plans.lit_to_clause.num_segments, 16), device=cuda)
+    other = tracing.family("test.captured_calls")
+
+    def fn(static, gen):
+        other["calls"] = other.get("calls", 0) + 1
+        out.copy_(segsum.gather_segsum(static, plans.lit_to_clause))
+
+    segsum.reset_launch_counts()
+    before = tracing.counters()
+    graph = cuda_graphs.CapturedGraph(fn, x, cuda, with_generator=False)
+    # the warm-up and the capture count nothing but the capture itself
+    moved = tracing.changes_since(before)
+    assert set(moved) == {"graph"} and moved["graph"]["captures"] == 1
+    assert moved["graph"]["record_ns"] > 0
+    assert graph.counts == {segsum.LAUNCH_FAMILY: {"lit_to_clause": 1},
+                            "test.captured_calls": {"calls": 1}}
+    assert graph.segsum_launches == 1
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, segsum.segsum_plain(x, plans.lit_to_clause))
+    moved = tracing.changes_since(before)
+    assert moved[segsum.LAUNCH_FAMILY] == {"lit_to_clause": 3}
+    assert moved["test.captured_calls"] == {"calls": 3}
+    assert moved["graph"]["captures"] == 1
+    cuda_graphs.CapturedGraph(fn, x, cuda, with_generator=False)
+    assert tracing.changes_since(before)["graph"]["captures"] == 2
+    segsum.reset_launch_counts()
 
 
 @pytest.mark.cuda

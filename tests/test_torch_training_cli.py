@@ -43,6 +43,22 @@ def test_defaults_equal_the_tpu_packages_field_by_field():
     assert tcfg.run_dir().name.startswith("query_sat_3-sat_x_")
 
 
+def test_a_run_in_the_same_second_takes_a_directory_of_its_own(
+        tmp_path, monkeypatch):
+    """Two runs started within one second do not share a run directory
+    (the second would append to the first's train log)."""
+    monkeypatch.setattr(tconfig.time, "strftime",
+                        lambda fmt: "20260101_000000")
+    cfg = tconfig.parse_config(["--train_dir", str(tmp_path)])
+    first = cfg.run_dir()
+    assert first.name == "query_sat_3-sat_20260101_000000"
+    first.mkdir()
+    second = cfg.run_dir()
+    assert second.name == "query_sat_3-sat_20260101_000000-1"
+    second.mkdir()
+    assert cfg.run_dir().name == "query_sat_3-sat_20260101_000000-2"
+
+
 @pytest.mark.parametrize("argv,item", [
     (["--model", "neuro_sat"], "item 4"),
     # k-SAT (--use_hard_3sat false) and the registry's tasks are ported
