@@ -189,6 +189,21 @@ Phases, each of which raises (exit code 1) on failure:
    every counted sample satisfying; and the kernel on the shard's plans
    and on the halo's send and receive plans.
 
+14. the f32-accumulating products (`ops/lowp.py`, the dense block-bf16
+   train step's MLP and incidence products) at the dense training cell's
+   block shapes, each route and its plain version within
+   LOWP_ROUNDING_UNITS of the exact product: the forward on bf16 tensor
+   cores with an f32 result, the backward's three-part split kernel
+   (`csrc/split_mm.cu`, `ops/split_mm.py`) for the activation, weight and
+   incidence-operand gradients; the f32 operand rounded to bf16, and a
+   sliced reduction's partials rounded to bf16, each beyond it; two
+   launches equal bit for bit; what the card's routes do not take raises;
+   each product timed beside its bound, its plain version and the upcast
+   f32 library route it replaced, and each of the two kernels' device
+   time; the routes and launches of one replay of a graphed block-bf16
+   chunk of full-width train steps, counted from zero (rows
+   `split_mm_kernel` and `sum_slices_kernel` of the `kernels` line).
+
 The full run makes its cached splits (`split_jobs`) ahead of the phases
 that read them, in a process of its own (`chip_smoke.py --make-splits
 DIR`) beside the card's work.
@@ -196,7 +211,8 @@ DIR`) beside the card's work.
 `python3 chip_smoke.py --only-anf` builds and runs phase 8 alone,
 `--only-graphs` phase 9, `--only-main` phase 10 (after the eval split),
 `--only-models` phase 11 (generating `main`'s split when phase 10 has
-not left it), `--only-studies` phase 12 and `--only-multi` phase 13. `--grad-gate-study` builds
+not left it), `--only-studies` phase 12, `--only-multi` phase 13 and
+`--only-lowp` phase 14 (building only its own kernel). `--grad-gate-study` builds
 and reads phase 11's 4-round gradient gate on more batches and seeds,
 sound and with faults planted (`grad_gate_study`). Inference rounds run as CUDA graphs in every
 phase (the launches a graph captured are credited once per replay).
@@ -451,6 +467,23 @@ MULTI_GP_SHORT_ROUNDS = 4
 MULTI_GP_SHORT_TOL = 1e-4
 MULTI_GP_ORDER_FACTOR = 2
 MULTI_EXCHANGE_ITERS = 20
+
+# phase 14: the f32-accumulating products of `ops/lowp.py` at the dense
+# training cell's block shapes (G, Vg, Cg): its largest graph count at the
+# smallest block (`portbench/drivers/train_dense.LEVELS`), its largest
+# clause-row chunk and its largest block. Each route and its plain version
+# lie within LOWP_ROUNDING_UNITS * 2**-24 * sum_k |a_ik||b_kj| of the exact
+# product, an entry: a sum of exact products in f32 errs by a few units of
+# 2**-24 of that sum of magnitudes whatever its length, as its roundings
+# fall on partial sums of random sign (the split kernel read up to 16.6,
+# the upcast cuBLAS product 11.3, over these shapes, reduced over 8 to
+# 24 576). A product rounded below f32 lies far beyond it: the f32
+# operand rounded to bf16 reads about 2**15 / sqrt(K) (200 at K = 24 576),
+# as do a sliced reduction's partials rounded to bf16; both are checked
+# to fail. Timed at LOWP_TIMED_BLOCK
+LOWP_ROUNDING_UNITS = 32
+LOWP_BLOCKS = ((512, 6, 48), (384, 12, 64), (112, 30, 136))
+LOWP_TIMED_BLOCK = (384, 12, 64)
 
 
 def train_argv(data_dir: Path) -> list[str]:
@@ -1215,7 +1248,8 @@ def anf_phase(dev, data_dir: Path, tools: dict) -> dict:
                 times[mode] = device_ms(lambda: tiled_fn(x, tiles0, mode))
             kernel_ms = device_ms(lambda: kernel_fn(x, plans0))
             # the tile products' work on this batch: 2 T tc tl F operations
-            # on the f32 pipe (TF32 off; the bf16 setting upcasts), and the
+            # on the f32 pipe (TF32 off; the bf16 setting's products run
+            # on tensor cores, under a lower bound than this), and the
             # blocks, each tile's input rows and the output moved once
             ops = 2 * T * tiles0.tc * tiles0.tl * F
             nbytes = 4 * (T * tiles0.tc * tiles0.tl + T * tiles0.tl * F +
@@ -3297,6 +3331,278 @@ def multi_phase(dev, data_dir: Path, tools: dict) -> list[dict]:
     return rows
 
 
+def lowp_phase(dev, tools: dict) -> list[dict]:
+    """Phase 14: the f32-accumulating products of the dense block-bf16
+    train step at the dense cell's block shapes (LOWP_BLOCKS), at full
+    width: every MLP layer's forward (`lowp.linear_f32acc`: a bf16
+    tensor-core GEMM with an f32 result), its activation and weight
+    gradients (`split_mm`, f32 cotangent with the bf16 operand), and both
+    incidence products with the features' gradient: the route and its
+    plain versions (the upcast f32 product; for the split kernel also
+    `split_mm_plain`) each within LOWP_ROUNDING_UNITS of the exact
+    product, the route launched twice and equal bit for bit; for each
+    split product the same product with the f32 operand rounded to bf16,
+    and where the reduction is sliced with the slices' partials rounded to
+    bf16, each beyond it. At LOWP_TIMED_BLOCK each is timed (device ms of
+    its main-path call) beside its bound (the operands read once and the
+    output written once at 3.35 TB/s, or its bf16 multiply-adds, three
+    times over for the split, at 989 TFLOP/s), the plain version's time
+    and the upcast f32 library route (`library_ms`: both operands cast to
+    f32, an f32 GEMM, the cast of the result), and the round's split
+    products are profiled for each of the two kernels' device time. Then
+    what the card's routes do not take raises, and a graphed block-bf16
+    chunk of GRAPHS_MEGA_STEPS full-width train steps on 20 000-node
+    batches (the `--mega_steps` path that the dense cell times) counts,
+    from zero, the products by route and the kernels' launches of one
+    replay. Returns the two kernels' rows of the `kernels` line."""
+    import numpy as np
+    import torch
+
+    from diffusionsat_torch import tracing
+    from diffusionsat_torch.data.bench_workloads import threshold_3sat_batch
+    from diffusionsat_torch.graph.dense_batch import densify_batches
+    from diffusionsat_torch.models.query_sat import (
+        QuerySATConfig,
+        query_sat_init,
+    )
+    from diffusionsat_torch.models.query_sat_dense import (
+        query_sat_dense_apply,
+    )
+    from diffusionsat_torch.ops import dense_ops, lowp, split_mm
+    from diffusionsat_torch.train.adabelief import adabelief
+    from diffusionsat_torch.train.loop import (
+        TrainState,
+        make_scanned_train_step_for,
+        stack_batches,
+    )
+
+    sync, device_ms = tools["sync"], tools["device_ms"]
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cfg = QuerySATConfig(block_bf16=True)
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def bound(a, b):
+        return LOWP_ROUNDING_UNITS * 2.0 ** -24 * (a.double().abs() @
+                                                   b.double().abs())
+
+    def share(got, exact, a, b):
+        """The largest share of the bound that `got` lies from the exact
+        product (float64: exact for these operands' products, and far
+        closer than the bound in its sums)."""
+        err = (got.double() - exact).abs()
+        return float((err / bound(a, b).clamp_min(1e-300)).max())
+
+    def held(name, got, exact, a, b):
+        s = share(got, exact, a, b)
+        if not s <= 1:
+            raise RuntimeError(f"lowp {name}: {s} of the bound")
+        return s
+
+    def missed(name, got, exact, a, b):
+        """A product rounded below f32 has to lie beyond the bound."""
+        s = share(got, exact, a, b)
+        if not s > 1:
+            raise RuntimeError(f"lowp {name}: a rounding below f32 lies "
+                               f"within the bound ({s})")
+        return s
+
+    def sliced_bf16(a, b):
+        """`a @ b` with each of the kernel's reduction slices summed
+        exactly and rounded to bf16, then the slices summed exactly."""
+        a3, b3 = (a[None], b[None]) if a.dim() == 2 else (a, b)
+        wide = 0 if a3.dtype == f32 else 1
+        m, n = (a3.shape[1], b3.shape[2])
+        if wide == 1:
+            m, n = n, m
+        p = split_mm.plan(a3.shape[0], m, n, a3.shape[2])
+        ks = p["k_slice"]
+        out = sum((a3[..., i:i + ks].double() @ b3[..., i:i + ks, :]
+                   .double()).to(bf16).double()
+                  for i in range(0, a3.shape[2], ks))
+        return out[0] if a.dim() == 2 else out, p["slices"]
+
+    timed_split = []
+
+    def product(name, block, a, b, split, timed):
+        """One product through its card route, held to its plain versions;
+        timed where asked."""
+        if split:
+            def route(dtype=bf16):
+                return split_mm.split_mm(a, b, dtype)
+        elif a.dim() == 2:
+            def route(dtype=f32):
+                return lowp.linear_f32acc(a, b)
+        else:
+            def route(dtype=f32):
+                return lowp.bmm_f32acc(a, b)
+        got = route(f32)
+        again = route(f32)
+        exact = a.double() @ b.double()
+        sync()
+        if not torch.equal(got, again):
+            raise RuntimeError(f"lowp {name}: two launches differ")
+        # the route and its plain versions, each within the bound of the
+        # exact product
+        row = dict(product=name, block=block, shape=[list(a.shape),
+                                                     list(b.shape)],
+                   route="split" if split else "tensor_core",
+                   bound_share=held(name, got, exact, a, b),
+                   bound_share_upcast=held(f"{name} (upcast)",
+                                           a.float() @ b.float(), exact, a,
+                                           b))
+        if split:
+            row["bound_share_plain"] = held(
+                f"{name} (plain)", split_mm.split_mm_plain(a, b), exact, a,
+                b)
+            wide_a = a.dtype == f32
+            rounded = (a.to(bf16).double() @ b.double() if wide_a else
+                       a.double() @ b.to(bf16).double())
+            row["bound_share_bf16_operand"] = missed(
+                f"{name} (f32 operand in bf16)", rounded, exact, a, b)
+            partials, slices = sliced_bf16(a, b)
+            row["slices"] = slices
+            if slices > 1:
+                row["bound_share_bf16_partials"] = missed(
+                    f"{name} (partials in bf16)", partials, exact, a, b)
+        if timed:
+            out_bytes = got.numel() * (2 if split else 4)
+            nbytes = a.numel() * a.element_size() + \
+                b.numel() * b.element_size() + out_bytes
+            macs = a.numel() * b.shape[-1]
+            ops = 2 * macs * (3 if split else 1)
+            out_dtype = bf16 if split else f32
+            row.update(
+                ms=device_ms(route),
+                plain_ms=(device_ms(lambda: split_mm.split_mm_plain(
+                    a, b, bf16)) if split else None),
+                library_ms=device_ms(
+                    lambda: (a.float() @ b.float()).to(out_dtype)),
+                bound_ms=max(nbytes / H100_BYTES_PER_S, ops / 989e12) * 1e3,
+                bound_by=("bytes" if nbytes / H100_BYTES_PER_S >=
+                          ops / 989e12 else "operations"))
+            row["roofline_share"] = row["bound_ms"] / row["ms"]
+            if split:
+                timed_split.append((route, row))
+        emit(phase="lowp", **row)
+
+    for block in LOWP_BLOCKS:
+        G, Vg, Cg = block
+        timed = block == LOWP_TIMED_BLOCK
+        rows = {"vars": G * Vg, "clauses": G * Cg}
+        for mlp, (mcfg, in_dim) in cfg.mlp_configs().items():
+            r = rows["clauses" if mlp == "clause_mlp" else "vars"]
+            dims = [in_dim] + [mcfg.hidden] * (mcfg.layer_count - 1) + \
+                [mcfg.out]
+            for i, (k, n) in enumerate(zip(dims[:-1], dims[1:])):
+                x = randn(r, k, dtype=bf16)
+                w = (randn(k, n) / k ** 0.5).to(bf16)
+                g = randn(r, n)
+                tag = f"{mlp}.{i}"
+                product(f"{tag}.forward", block, x, w, False, timed)
+                product(f"{tag}.gx", block, g, w.t(), True, timed)
+                product(f"{tag}.gw", block, x.t(), g, True, timed)
+        inc = (torch.rand((G, Cg, 2 * Vg), generator=gen, device=dev) <
+               3.0 / (2 * Vg)).to(bf16)
+        lits = randn(G, 2 * Vg, cfg.query_maps, dtype=bf16)
+        clauses = randn(G, Cg, cfg.query_maps, dtype=bf16)
+        g_clauses = randn(G, Cg, cfg.query_maps)
+        g_lits = randn(G, 2 * Vg, cfg.query_maps)
+        product("lit_to_clause.forward", block, inc, lits, False, timed)
+        product("lit_to_clause.gb", block, inc.transpose(1, 2), g_clauses,
+                True, timed)
+        product("clause_to_lit.forward", block, inc.transpose(1, 2),
+                clauses, False, timed)
+        product("clause_to_lit.gb", block, inc, g_lits, True, timed)
+
+    # the timed block's split products, profiled: each kernel's device time
+    # for one round of them
+    rounds = 5
+    with tools["profile"](activities=tools["activities"]) as prof:
+        for _ in range(rounds):
+            for route, _ in timed_split:
+                route()
+        sync()
+    by_kernel = {"split_mm_kernel": 0.0, "sum_slices_kernel": 0.0}
+    for e in tools["cuda_kernels"](prof):
+        for name in by_kernel:
+            if name in e.key:
+                by_kernel[name] += tools["dev_us"](e) / 1e3 / rounds
+    sliced = [row for _, row in timed_split if row["slices"] > 1]
+    sum_bytes = sum(row["slices"] * 4 * np.prod(row["shape"][0][:-1]) *
+                    row["shape"][1][-1] * (1 + 0.5 / row["slices"])
+                    for row in sliced)
+    emit(phase="lowp_kernels", block=LOWP_TIMED_BLOCK, ms=by_kernel,
+         products=len(timed_split), sliced=len(sliced))
+
+    # what the card's routes do not take
+    refused = {}
+    bf = randn(8, 8, dtype=bf16)
+    for name, call in (
+            ("f32 operand forward", lambda: lowp.linear_f32acc(bf.float(),
+                                                               bf)),
+            ("f16 operand forward", lambda: lowp.bmm_f32acc(
+                bf.half()[None], bf[None])),
+            ("two bf16 operands split", lambda: split_mm.split_mm(bf, bf)),
+            ("two f32 operands split", lambda: split_mm.split_mm(
+                bf.float(), bf.float()))):
+        try:
+            call()
+        except TypeError as e:
+            refused[name] = str(e)[:80]
+        else:
+            raise RuntimeError(f"lowp: {name} ran on the card")
+    emit(phase="lowp_refused", refused=refused)
+
+    # one replay of a graphed block-bf16 chunk, the main path's run: its
+    # products by route and the kernels' launches, counted from zero
+    rng = np.random.default_rng(0)
+    chunk = stack_batches(densify_batches(
+        [threshold_3sat_batch(rng, 20000)[0]
+         for _ in range(GRAPHS_MEGA_STEPS)])).to(dev)
+    params = query_sat_init(gen, cfg)
+    opt = adabelief(learning_rate=1e-3)
+    state = TrainState(params=params, opt_state=opt.init(params), step=0,
+                       generator=gen)
+    with dense_ops.incidence_precision("default"):
+        mega = make_scanned_train_step_for(query_sat_dense_apply, cfg, opt,
+                                           dev)
+        state, _ = mega(state, chunk)   # warm-up and capture
+        sync()
+        for fam in (lowp.ROUTES, split_mm.LAUNCHES):
+            for key in fam:
+                fam[key] = 0
+        state, out = mega(state, chunk)
+        sync()
+    routes, launches = dict(lowp.ROUTES), dict(split_mm.LAUNCHES)
+    if routes.get("plain") or not routes.get("split") or \
+            not routes.get("tensor_core"):
+        raise RuntimeError(f"lowp: a graphed chunk took the routes {routes}")
+    emit(phase="lowp_graphed_chunk", steps=GRAPHS_MEGA_STEPS,
+         block=(chunk.G, chunk.Vg, chunk.Cg), routes=routes,
+         launches=launches, loss=out["loss_per_step"].tolist())
+
+    def total(key):
+        return sum(row[key] for _, row in timed_split)
+
+    common = dict(route="cuda", source="diffusionsat_torch/csrc/split_mm.cu",
+                  replaces=None, shapes=f"one round's {len(timed_split)} "
+                  f"split products at the block {LOWP_TIMED_BLOCK}",
+                  launches_graphed_chunk_steps=GRAPHS_MEGA_STEPS)
+    return [dict(name="split_mm_kernel", ms=by_kernel["split_mm_kernel"],
+                 plain_ms=total("plain_ms"), library_ms=total("library_ms"),
+                 bound_ms=total("bound_ms"), launches=launches["product"],
+                 **common),
+            dict(name="sum_slices_kernel", ms=by_kernel["sum_slices_kernel"],
+                 plain_ms=None, library_ms=None,
+                 bound_ms=sum_bytes / H100_BYTES_PER_S * 1e3,
+                 launches=launches["sum"], sliced_products=len(sliced),
+                 **common)]
+
+
 def grad_gate_study(dev) -> dict:
     """`--grad-gate-study`: phase 11's 4-round gradient check read on
     GATE_STUDY_BATCHES 20 000-node batches x GATE_STUDY_SEEDS params and
@@ -3413,10 +3719,10 @@ def main(argv: list[str]) -> int:
         argv = argv[:at] + argv[at + 2:]
     if argv not in ([], ["--only-anf"], ["--only-graphs"], ["--only-main"],
                     ["--only-models"], ["--only-studies"], ["--only-multi"],
-                    ["--grad-gate-study"]):
+                    ["--only-lowp"], ["--grad-gate-study"]):
         print("usage: chip_smoke.py [--only-anf | --only-graphs | "
               "--only-main | --only-models | --only-studies | "
-              "--only-multi | --grad-gate-study] "
+              "--only-multi | --only-lowp | --grad-gate-study] "
               "[--baseline-kernel PATH]", file=sys.stderr)
         return 2
 
@@ -3692,6 +3998,16 @@ def run(argv: list[str], splits: Splits, baseline: Path | None = None
         with profile(activities=activities) as prof:
             fn()
         return sum(dev_us(e) for e in cuda_kernels(prof)) / 1e6
+
+    if argv == ["--only-lowp"]:
+        print(json.dumps({"kernels": lowp_phase(dev, dict(
+            sync=sync, device_ms=device_ms, profile=profile,
+            activities=activities, cuda_kernels=cuda_kernels,
+            dev_us=dev_us))}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # -- phase 1: build ---------------------------------------------------
     t0 = time.perf_counter()
@@ -4495,6 +4811,7 @@ def run(argv: list[str], splits: Splits, baseline: Path | None = None
     models = models_phase(dev, data_dir, tools)
     studies = studies_phase(dev, data_dir, tools)
     multi_rows = multi_phase(dev, data_dir, tools)
+    lowp_rows = lowp_phase(dev, tools)
 
     # one row per kernel: times at the sampler's shapes, launches of the
     # sampler run; the solving eval's and the training paths' launches and
@@ -4528,7 +4845,7 @@ def run(argv: list[str], splits: Splits, baseline: Path | None = None
         row["launches_anf_structure"] = studies[
             "launches_anf_structure"].get(row["name"].split(":")[1], 0)
     print(json.dumps({"kernels": kernels + anf["kernels"] + edge_rows +
-                      studies["rows"] + multi_rows}), flush=True)
+                      studies["rows"] + multi_rows + lowp_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -23,8 +23,9 @@ steps, or one eager step) under `torch.profiler` over the median wall of
 the same call timed without it; peak memory counts the graphs' capture.
 The matmul accounting (`_mlp_row_macs`, `_matmul_macs`, `_useful_macs`) is
 the TPU package's; the peak is the H100's f32 rate outside the tensor
-cores, 67 TFLOP/s, since TF32 is off and the block-bf16 products upcast
-their operands to f32 GEMMs (`ops/lowp.py`). The card's name and power
+cores, 67 TFLOP/s, the rate of the f32 products with TF32 off. The
+block-bf16 products run on bf16 tensor cores (`ops/lowp.py`), so their
+share of that peak overstates their share of the card's. The card's name and power
 limit (`nvidia-smi`) are part of the line. `--device cpu` runs the same
 loop on the CPU, for tests at small widths: it times the CPU, not a card,
 and measures no busy share.
@@ -65,7 +66,7 @@ from diffusionsat_torch.train.loop import (
 # H100 SXM, f32 outside the tensor cores (NVIDIA's data sheet, at 700 W)
 H100_F32_FLOPS = 67e12
 PEAK_BASIS = ("f32 without tensor cores, 67 TFLOP/s (H100 SXM): TF32 is "
-              "off and block-bf16 products upcast their operands to f32")
+              "off; block-bf16 products run on bf16 tensor cores")
 # the TPU package's fixed estimate of the reference's step rate on a T4
 BASELINE_EDGES_PER_SEC = 1.0e7
 

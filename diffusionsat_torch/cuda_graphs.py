@@ -17,7 +17,8 @@ dispatch here is one CUDA graph replay:
 - `run_rounds`: the round loop of the three models in inference: one graph
   per round body and shape, replayed `rounds` times, with the early-exit
   flag read between replays as the TPU package's `while_loop` tests it.
-- Counters (`tracing.py`'s families, `ops/segsum.LAUNCHES` among them):
+- Counters (`tracing.py`'s families, `ops/segsum.LAUNCHES` and
+  `ops/lowp.ROUTES` among them):
   what a graph's capture counted is credited once per replay; the warm-up
   and the capture count nothing. The `graph` family counts the captures
   and the host time inside their recording blocks.
@@ -43,7 +44,7 @@ from typing import Any, Callable, Iterator
 import torch
 
 from diffusionsat_torch import tracing
-from diffusionsat_torch.ops import segsum
+from diffusionsat_torch.ops import lowp, segsum
 
 EAGER_ENV = "DSAT_EAGER"
 # graphs recorded, and ns of host time inside their recording blocks
@@ -225,6 +226,16 @@ class CapturedGraph:
         """Segsum kernel launches a replay runs."""
         return sum(self.counts.get(segsum.LAUNCH_FAMILY, {}).values())
 
+    def replay_attrs(self, replays: int) -> dict:
+        """A `graph.replay` span's attributes over `replays` replays: the
+        segsum launches, and the f32-accumulating products by route
+        (`lowp_<route>`, the routes the capture counted) that they ran."""
+        attrs = dict(replays=replays,
+                     segsum_launches=replays * self.segsum_launches)
+        for route, n in self.counts.get(lowp.ROUTE_FAMILY, {}).items():
+            attrs[f"lowp_{route}"] = replays * n
+        return attrs
+
     @contextlib.contextmanager
     def drawing_from(self, generator: torch.Generator | None
                      ) -> Iterator[None]:
@@ -311,7 +322,6 @@ def run_rounds(make_round: Callable, key, ctx, carry, rounds: int,
             if early_exit and bool(scarry[-1]):
                 break
         if sp:
-            sp.set(replays=replays,
-                   segsum_launches=replays * graph.segsum_launches)
+            sp.set(**graph.replay_attrs(replays))
     with tracing.span("graph.copy_out"):
         return tree_map(torch.clone, scarry)

@@ -4,8 +4,9 @@ Counterpart of the TPU package's `ops/dense_ops.py`. Semantics match
 `ops/graph_ops.py` and `losses/sat.py`; the representation is per-graph
 dense incidence, so every aggregation is a batched matrix product or a
 masked axis reduction: no gathers and no segment ops. The incidence
-products are library products (`torch.einsum`), as the TPU package leaves
-them to its compiler, and always return f32.
+products are library products, as the TPU package leaves them to its
+compiler, and always return f32: `torch.einsum` for f32 operands, and
+`ops/lowp.bmm_f32acc` for bf16 ones.
 
 `INCIDENCE_PRECISION` is the module knob for these two products only; the
 training script sets it (`--incidence_precision`) for the length of a run
@@ -19,12 +20,19 @@ The process-wide TF32 switch (`device.py` turns it off) is never touched:
   value a TF32 tensor-core product gives. The incidence's small integers
   are exact. The backward is not rounded.
 - "default": bf16 operands with f32 accumulation. Exact for the
-  incidence; the features round to 8 mantissa bits, the gradients too.
+  incidence; the features round to 8 mantissa bits, the features'
+  gradients too (they are returned in the features' type).
 
 Under the block-bf16 flow both operands arrive as bf16 and every mode
 computes the same bf16 product with f32 accumulation. A bf16 incidence
 with f32 features (the query gradient, the SAT check) is promoted to f32
 and then follows the mode.
+
+`bmm_f32acc` upcasts its operands to f32 only on the CPU. On the card the
+forward is a bf16 tensor-core product with an f32 result, and the
+backward multiplies the f32 cotangent with the bf16 incidence on tensor
+cores, the cotangent cut exactly into three bf16 parts
+(`ops/split_mm.py`): no f32 copy of a bf16 operand is made.
 """
 
 from __future__ import annotations

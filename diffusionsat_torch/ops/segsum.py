@@ -119,7 +119,7 @@ def _find_nvcc() -> str:
         nvcc = "/usr/local/cuda/bin/nvcc"
     if nvcc is None:
         raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the segsum kernel")
+                           "build the port's kernels")
     return nvcc
 
 
@@ -138,10 +138,14 @@ def build_library(source: Path | None = None) -> _Library:
         return _library
 
 
-def _build(source: Path) -> _Library:
+def compile_cuda(source: Path, stem: str) -> tuple[Path, float, str]:
+    """Compile a `.cu` file with a plain C interface into
+    `_build/lib<stem>_<hash>.so`, once per source version on disk; returns
+    the library's path, the seconds nvcc took (0.0 when an earlier build
+    was reused) and nvcc's output."""
     src = source.read_bytes()
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = BUILD_DIR / f"libsegsum_{tag[:16]}.so"
+    so = BUILD_DIR / f"lib{stem}_{tag[:16]}.so"
     seconds, log = 0.0, ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -154,6 +158,11 @@ def _build(source: Path) -> _Library:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
         os.replace(tmp, so)  # atomic: concurrent builds agree
+    return so, seconds, log
+
+
+def _build(source: Path) -> _Library:
+    so, seconds, log = compile_cuda(source, "segsum")
     lib = ctypes.CDLL(str(so))
     fn = lib.dsat_gather_segsum
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,

@@ -15,7 +15,8 @@ kernel:
     predict.step     `make_predict_step`'s call
     graph.lookup     signature and cache lookup, capture on a miss
     graph.copy_in    inputs into a graph's static buffers
-    graph.replay     the replays of one call (replays, segsum_launches)
+    graph.replay     the replays of one call (replays, segsum_launches,
+                     lowp_<route>: `CapturedGraph.replay_attrs`)
     graph.copy_out   results out of the buffers
 
 A train chunk (`make_scanned_train_step_for`'s call) records the four
@@ -34,6 +35,10 @@ around its capture and credits each replay with what the capture counted
 `credit`). The families:
 
     segsum.launches  kernel launches per plan direction (`ops/segsum.LAUNCHES`)
+    lowp             f32-accumulating products launched per route:
+                     `tensor_core`, `split`, `plain` (`ops/lowp.ROUTES`)
+    split_mm.launches  the split kernel's launches: `product`, and `sum`
+                     for a cut reduction's second pass (`ops/split_mm`)
     graph            `captures`: graphs recorded; `record_ns`: host time
                      inside the recording block of each capture
 """

@@ -352,7 +352,7 @@ def make_scanned_train_step_for(apply_fn: Callable, cfg, optimizer,
                 graph.drawing_from(state.generator):
             graph.replay()
             if sp:
-                sp.set(replays=1, segsum_launches=graph.segsum_launches)
+                sp.set(**graph.replay_attrs(1))
         with tracing.span("graph.copy_out"):
             new_state = TrainState(params=opt[0], opt_state=opt[1],
                                    step=state.step + n,
