@@ -21,7 +21,9 @@ dispatch here is one CUDA graph replay:
   `ops/lowp.ROUTES` among them):
   what a graph's capture counted is credited once per replay; the warm-up
   and the capture count nothing. The `graph` family counts the captures
-  and the host time inside their recording blocks.
+  and the host time inside their recording blocks. `capture_nodes` reads
+  how many nodes (kernels, memsets, copies) a graph under capture holds
+  so far, so a site can count the launches it adds to each replay.
 - Spans (`tracing.py`, while a profiler records): `graph.lookup`,
   `graph.copy_in`, `graph.replay` and `graph.copy_out` of each call.
 
@@ -44,16 +46,53 @@ from typing import Any, Callable, Iterator
 import torch
 
 from diffusionsat_torch import tracing
-from diffusionsat_torch.ops import lowp, segsum
+from diffusionsat_torch.ops import segsum
 
 EAGER_ENV = "DSAT_EAGER"
 # graphs recorded, and ns of host time inside their recording blocks
-GRAPHS = tracing.family("graph", ("captures", "record_ns"))
+GRAPHS_FAMILY = "graph"
+GRAPHS = tracing.family(GRAPHS_FAMILY, ("captures", "record_ns"))
+# cuStreamCaptureStatus
+_CAPTURE_ACTIVE = 1
+_driver = None
 
 
 def graphs_enabled(device: torch.device) -> bool:
     """True on CUDA unless `DSAT_EAGER=1` asks for the eager loops."""
     return device.type == "cuda" and os.environ.get(EAGER_ENV, "0") != "1"
+
+
+def capturing_stream(device: torch.device) -> int | None:
+    """The handle of `device`'s current stream where a CUDA graph is being
+    captured on it; None elsewhere (the CPU, eager calls)."""
+    if device.type != "cuda" or not torch.cuda.is_current_stream_capturing():
+        return None
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def capture_nodes(stream: int) -> int | None:
+    """The nodes that the CUDA graph captured on `stream` (a handle from
+    `capturing_stream`) holds so far, by the driver API: each kernel
+    launch, memset or copy captured adds one. None once the stream
+    captures nothing."""
+    global _driver
+    import ctypes
+
+    if _driver is None:
+        _driver = ctypes.CDLL("libcuda.so.1")
+    status, graph = ctypes.c_int(), ctypes.c_void_p()
+    cid, deps, n = ctypes.c_ulonglong(), ctypes.c_void_p(), ctypes.c_size_t()
+    rc = _driver.cuStreamGetCaptureInfo_v2(
+        ctypes.c_void_p(stream), ctypes.byref(status), ctypes.byref(cid),
+        ctypes.byref(graph), ctypes.byref(deps), ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuStreamGetCaptureInfo_v2 failed ({rc})")
+    if status.value != _CAPTURE_ACTIVE:
+        return None
+    rc = _driver.cuGraphGetNodes(graph, None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed ({rc})")
+    return n.value
 
 
 @contextlib.contextmanager
@@ -228,12 +267,15 @@ class CapturedGraph:
 
     def replay_attrs(self, replays: int) -> dict:
         """A `graph.replay` span's attributes over `replays` replays: the
-        segsum launches, and the f32-accumulating products by route
-        (`lowp_<route>`, the routes the capture counted) that they ran."""
+        segsum launches, and every other count the capture made as
+        `<family>_<key>` (`lowp_<route>`, `lstm_<key>`, ...)."""
         attrs = dict(replays=replays,
                      segsum_launches=replays * self.segsum_launches)
-        for route, n in self.counts.get(lowp.ROUTE_FAMILY, {}).items():
-            attrs[f"lowp_{route}"] = replays * n
+        for family, moved in self.counts.items():
+            if family in (segsum.LAUNCH_FAMILY, GRAPHS_FAMILY):
+                continue
+            for key, n in moved.items():
+                attrs[f"{family}_{key}"] = replays * n
         return attrs
 
     @contextlib.contextmanager

@@ -17,6 +17,16 @@ once per batch, so on the card the literal-clause aggregations and their
 backwards go through the segsum kernel. Checkpoints are the port's own
 (`train/checkpoint.CheckpointManager`): `--restore DIR` continues from the
 newest one in DIR.
+
+`--mega_steps N` (N > 1) trains chunks of N batches, one CUDA graph replay
+a chunk on the card (`train/loop.make_scanned_train_step_for`), for the
+models in `GRAPHED_MODELS`: those whose graphed chunk a card test holds
+equal to the same eager steps bit for bit
+(`tests/test_torch_main_mega_cuda.py`). The chunks are built once
+(`train/loop.chunk_batches`, whole chunks only) and drawn in an order
+shuffled per pass from `--seed`; evals and checkpoints come every
+`.. // N` calls, and the last chunk is cut at `--train_steps`. Any other
+model trains one step a call, with a warning.
 """
 
 from __future__ import annotations
@@ -50,7 +60,9 @@ from diffusionsat_torch.train.adabelief import adabelief
 from diffusionsat_torch.train.checkpoint import CheckpointManager
 from diffusionsat_torch.train.loop import (
     TrainState,
+    chunk_batches,
     evaluate_metrics,
+    make_scanned_train_step_for,
     make_train_step_for,
     plan_batches,
     train,
@@ -61,6 +73,10 @@ from diffusionsat_torch.train.metrics import SATAccuracy, StepStatistics
 EVAL_FLAGS = ["evaluate", "evaluate_round_gen", "evaluate_variable_gen",
               "evaluate_batch_gen", "test_invariance", "test_classic_solver",
               "make_cactus"]
+
+# models that train under --mega_steps: a card test holds their graphed
+# chunk equal to the same eager steps bit for bit
+GRAPHED_MODELS = ("neuro_sat",)
 
 # the sweeps' lists, as the reference's main.py has them
 ROUND_GEN_ROUNDS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
@@ -169,28 +185,53 @@ def main(argv=None, *, round_gen_rounds=ROUND_GEN_ROUNDS,
                          gen_workers=cfg.gen_workers or None)
     test_data = dataset.test_data()
 
+    mega = max(cfg.mega_steps, 1)
+    if mega > 1 and cfg.model not in GRAPHED_MODELS:
+        print(f"WARNING: --mega_steps needs a model whose graphed steps a "
+              f"card test holds equal to its eager ones "
+              f"({', '.join(GRAPHED_MODELS)}); ignored for {cfg.model}",
+              flush=True)
+        mega = 1
+
     seconds: dict[str, float] = {}
     t0 = time.perf_counter()
     if cfg.train_steps > state.step:
-        # every training batch on the device once, with its plans
-        planned = plan_batches(dataset.train_data().batches, dev, edges)
-        plans_of = {id(b): p for b, p in planned}
-        step = make_train_step_for(model_apply, model_cfg, optimizer, dev)
+        if mega > 1:
+            # chunks of `mega` planned batches, stacked on the host and
+            # moved to the device once
+            planned = plan_batches(dataset.train_data().batches, "cpu",
+                                   edges)
+            chunks = chunk_batches(planned, mega, dev)
+            print(f"mega-steps: {len(chunks)} chunks of {mega} steps "
+                  f"({len(planned) % mega} batches left out)", flush=True)
+            train_step = make_scanned_train_step_for(
+                model_apply, model_cfg, optimizer, dev)
+            stream = PackedBatches(chunks, seed=cfg.seed)
+        else:
+            # every training batch on the device once, with its plans
+            planned = plan_batches(dataset.train_data().batches, dev, edges)
+            plans_of = {id(b): p for b, p in planned}
+            step = make_train_step_for(model_apply, model_cfg, optimizer,
+                                       dev)
 
-        def train_step(st, batch):
-            return step(st, batch, plans_of[id(batch)])
+            def train_step(st, batch):
+                return step(st, batch, plans_of[id(batch)])
 
-        stream = PackedBatches([b for b, _ in planned], seed=cfg.seed)
+            stream = PackedBatches([b for b, _ in planned], seed=cfg.seed)
         eval_batches = plan_batches(list(test_data)[:8], dev, edges)
+        # a call takes up to `mega` steps, the last cut at --train_steps;
+        # evals and checkpoints come every `.. // mega` calls
         state = train(
             state, train_step, stream.repeat_shuffled(),
-            steps=cfg.train_steps - state.step,
+            steps=-(-(cfg.train_steps - state.step) // mega),
+            target_step=cfg.train_steps,
             eval_fn=lambda st: evaluate_metrics(
                 st.params, model_cfg, eval_batches,
                 [SATAccuracy(), StepStatistics()], seeded(99),
                 max_batches=8, apply_fn=model_apply, device=dev),
-            eval_every=cfg.eval_every, checkpoint_fn=mgr.save,
-            ckpt_every=cfg.ckpt_every, log_file=run_dir / "train_log.jsonl")
+            eval_every=max(1, cfg.eval_every // mega), checkpoint_fn=mgr.save,
+            ckpt_every=max(1, cfg.ckpt_every // mega),
+            log_file=run_dir / "train_log.jsonl")
         mgr.save(state)
     seconds["train"] = time.perf_counter() - t0
 

@@ -89,7 +89,8 @@ def _neuro_sat_apply(params, cfg, batch, rounds, plans, dev):
     mcfgs = cfg.mlp_configs()
     V, f = batch.V, cfg.feature_maps
     l2c, c2l = aggregations(batch, plans)
-    denom = torch.sqrt(torch.tensor(f, dtype=torch.float32, device=dev))
+    # filled on the device, so that a CUDA graph can capture the step
+    denom = torch.sqrt(torch.full((), f, dtype=torch.float32, device=dev))
 
     def vote(literals):
         variables = torch.cat([literals[:V], literals[V:]], dim=1)

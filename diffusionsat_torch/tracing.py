@@ -16,7 +16,8 @@ kernel:
     graph.lookup     signature and cache lookup, capture on a miss
     graph.copy_in    inputs into a graph's static buffers
     graph.replay     the replays of one call (replays, segsum_launches,
-                     lowp_<route>: `CapturedGraph.replay_attrs`)
+                     lowp_<route>, lstm_<key>:
+                     `CapturedGraph.replay_attrs`)
     graph.copy_out   results out of the buffers
 
 A train chunk (`make_scanned_train_step_for`'s call) records the four
@@ -39,6 +40,9 @@ around its capture and credits each replay with what the capture counted
                      `tensor_core`, `split`, `plain` (`ops/lowp.ROUTES`)
     split_mm.launches  the split kernel's launches: `product`, and `sum`
                      for a cut reduction's second pass (`ops/split_mm`)
+    lstm             LSTM cells: `cells`, a forward call; `launches`, in
+                     a capture, the graph nodes a cell's forward and
+                     backward add (`nn/lstm.COUNTS`)
     graph            `captures`: graphs recorded; `record_ns`: host time
                      inside the recording block of each capture
 """

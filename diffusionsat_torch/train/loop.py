@@ -7,10 +7,11 @@ step's loss, round count and gradient norm stay on the device; `train`
 fetches the losses once per log window.
 
 Many steps per dispatch (`make_scanned_train_step_for` over a chunk that
-`stack_batches` stacked): on the card the N steps of a chunk are one
-captured CUDA graph, one per chunk shape, replayed once a chunk (see
-`cuda_graphs.py`); on the CPU, or with `DSAT_EAGER=1`, the same function
-runs the eager step N times.
+`stack_batches` stacked, or that `chunk_batches` grouped from planned flat
+batches): on the card the N steps of a chunk are one captured CUDA graph,
+one per chunk shape, replayed once a chunk (see `cuda_graphs.py`); on the
+CPU, or with `DSAT_EAGER=1`, the same function runs the eager step N
+times.
 
 A flat batch runs with its kernel plans in every step here (train, self-
 supervised, diagnostics, predict): `BatchPlans` for a CNF `SatBatch`,
@@ -245,6 +246,24 @@ def stack_batches(items: Sequence) -> Any:
     stack when they are padded to their bucket (`build_plans(batch,
     pad=True)`)."""
     return cuda_graphs.stack_trees(list(items))
+
+
+def whole_chunks(items: Sequence, n: int) -> list:
+    """`items` in their order as chunks of `n`, whole chunks only: the last
+    `len(items) % n` are left out."""
+    if len(items) < n:
+        raise ValueError(f"{len(items)} batches make no chunk of {n} steps")
+    return [items[i:i + n] for i in range(0, len(items) - n + 1, n)]
+
+
+def chunk_batches(planned: Sequence[PlannedBatch], n: int,
+                  device: str | torch.device = "cuda") -> list:
+    """Batches paired with their padded plans (`plan_batches`), grouped
+    into `whole_chunks` of `n` steps, each stacked (`stack_batches`) and
+    moved to `device`: the chunks `make_scanned_train_step_for` takes."""
+    dev = resolve_device(device)
+    return [tuple(t.to(dev) for t in stack_batches(c))
+            for c in whole_chunks(planned, n)]
 
 
 def make_scanned_train_step_for(apply_fn: Callable, cfg, optimizer,
